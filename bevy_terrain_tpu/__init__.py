@@ -1,11 +1,12 @@
-"""bevy_terrain_tpu — a TPU-native terrain engine (JAX / XLA / Pallas).
+"""bevy_terrain_tpu — a terrain engine in JAX / XLA.
 
 A from-scratch re-design of the capabilities of ``kurtkuehnert/bevy_terrain``
-(reference mounted read-only at /root/reference) for TPU hardware:
+(the reference; SURVEY.md maps it) as array programs for an accelerator
+(today an NVIDIA GPU):
 
 * the UDLOD geometry pipeline (GPU quadtree refinement -> compacted tile list
   -> CDLOD-morphed mesh generation, reference src/render/ + src/shaders/) runs
-  as vectorized XLA/Pallas kernels inside one jitted per-frame step,
+  as vectorized XLA programs inside one jitted per-frame step,
 * the chunked-clipmap data layer (per-view wrapping TileTree + shared
   streaming TileAtlas, reference src/terrain_data/) becomes persistent device
   tensor slabs with host-side residency bookkeeping and async tile IO,

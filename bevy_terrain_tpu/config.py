@@ -115,11 +115,11 @@ class TerrainViewConfig:
     Distances are measured in multiples of the terrain scale and converted to
     world units at ``TileTree`` creation (reference src/terrain_data/tile_tree.rs:139-153).
 
-    TPU-specific additions:
+    Additions of this design:
     * ``tile_capacity``: static bound for the refinement work queue / final
       tile list. The reference uses ``geometry_tile_count`` (default 1e6) as a
-      hard buffer cap (src/terrain_view.rs:23-25); on TPU shapes are static so
-      this directly sizes the compacted tile tensors. Overflow is masked,
+      hard buffer cap (src/terrain_view.rs:23-25); jitted shapes are static
+      so this directly sizes the compacted tile tensors. Overflow is masked,
       never reallocated.
     """
 
@@ -135,7 +135,7 @@ class TerrainViewConfig:
     blend_range: float = 0.2
     precision_threshold_distance: float = 0.001
     origin_lod: int = 10
-    # TPU static-shape bound for the refinement queue / final tile list.
+    # static-shape bound for the refinement queue / final tile list.
     tile_capacity: int = 8192
 
     @property

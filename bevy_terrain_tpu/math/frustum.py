@@ -3,7 +3,7 @@
 The reference declares a ``CullingUniform`` with the view position, the
 view-projection matrix and five frustum planes, and ships a plane
 extraction helper (/root/reference/src/render/culling_bind_group.rs:25-55)
-— though that snapshot leaves ``planes`` at default. The TPU build
+— though that snapshot leaves ``planes`` at default. This build
 populates them: the host extracts planes (f64) from the camera's
 view-projection each frame and the refinement kernel tests each candidate
 tile's bounding volume against them (SURVEY.md L3 target), so tiles

@@ -5,13 +5,17 @@ file loader — the parts the reference writes in Rust (tile_atlas.rs). The
 Python implementations in terrain_data/tile_atlas.py remain as the
 fallback and as the oracle the native backend is tested against.
 
-Build with ``make -C bevy_terrain_tpu/native`` (auto-attempted on first
-import when the .so is missing and a compiler is available).
+The library is never committed: it is built from ``terrain_runtime.cpp``
+on first use, and rebuilt when the source is newer (or ahead of time with
+``make -C bevy_terrain_tpu/native``).
+When the build fails the Python fallbacks run and :func:`build_error`
+says why.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 import subprocess
 from pathlib import Path
 from typing import Optional
@@ -20,30 +24,69 @@ import numpy as np
 
 _DIR = Path(__file__).resolve().parent
 _LIB_PATH = _DIR / "libterrain_runtime.so"
+_SRC_PATH = _DIR / "terrain_runtime.cpp"
 _lib = None
+_build_error: Optional[str] = None
+
+
+def _stale() -> bool:
+    """True when the library is missing or older than its source."""
+    return (not _LIB_PATH.exists()
+            or _LIB_PATH.stat().st_mtime < _SRC_PATH.stat().st_mtime)
+
+
+def _build() -> None:
+    """Build the library once, safely under concurrent importers (test
+    workers): an exclusive lock serializes concurrent builds, and the compiler
+    writes a private file that is renamed into place, so no process ever
+    opens a half-written library."""
+    import fcntl
+
+    with open(_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not _stale():
+            return
+        tmp = f"libterrain_runtime.build{os.getpid()}.so"
+        try:
+            subprocess.run(
+                ["make", "-C", str(_DIR), f"TARGET={tmp}", tmp],
+                check=True, capture_output=True, text=True, timeout=300,
+            )
+            os.replace(_DIR / tmp, _LIB_PATH)
+        finally:
+            (_DIR / tmp).unlink(missing_ok=True)
+
+
+def build_error() -> Optional[str]:
+    """Why the native runtime is unavailable (None when it loaded)."""
+    _load()
+    return _build_error
 
 
 def _load() -> Optional[ctypes.CDLL]:
-    global _lib
-    if _lib is not None:
+    global _lib, _build_error
+    if _lib is not None or _build_error is not None:
         return _lib
     # BT_DISABLE_NATIVE=1 forces the pure-Python fallbacks everywhere the
     # native runtime is optional (residency, IO pool, scan, Taylor,
     # bilinear taps). Debugging/bisection switch: lets any fault be
     # attributed to (or cleared of) the C++ layer without a rebuild.
-    import os
     if os.environ.get("BT_DISABLE_NATIVE") == "1":
+        _build_error = "disabled by BT_DISABLE_NATIVE=1"
         return None
-    if not _LIB_PATH.exists():
+    if _stale():
         try:
-            subprocess.run(
-                ["make", "-C", str(_DIR)], check=True, capture_output=True, timeout=120
-            )
-        except Exception:
+            _build()
+        except subprocess.CalledProcessError as exc:
+            _build_error = f"build failed: {exc.stderr.strip()[-2000:]}"
+            return None
+        except Exception as exc:
+            _build_error = f"build failed: {exc!r}"
             return None
     try:
         lib = ctypes.CDLL(str(_LIB_PATH))
-    except OSError:
+    except OSError as exc:
+        _build_error = f"load failed: {exc}"
         return None
 
     i64p = ctypes.POINTER(ctypes.c_int64)
@@ -119,6 +162,11 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.tr_downsample.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int32, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p,
+    ]
+    lib.tr_png_unfilter.restype = ctypes.c_int32
+    lib.tr_png_unfilter.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
         ctypes.c_void_p,
     ]
     _lib = lib
@@ -453,3 +501,19 @@ def view_anchors(side_uv: np.ndarray, L: int, T: int,
         _i32p(origins), _i32p(view_int),
         view_frac.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
     )
+
+
+def png_unfilter(data: np.ndarray, rows: int, stride: int, bpp: int) -> np.ndarray:
+    """Native PNG scanline reconstruction (terrain_runtime.cpp
+    tr_png_unfilter): ``data`` is the decompressed IDAT stream of ``rows``
+    filtered scanlines; returns the (rows, stride) uint8 raw bytes."""
+    lib = _load()
+    assert lib is not None
+    data = np.ascontiguousarray(data, np.uint8)
+    if data.size != rows * (stride + 1) or bpp < 1:
+        raise ValueError("PNG: image data does not match the header")
+    out = np.empty((rows, stride), np.uint8)
+    if lib.tr_png_unfilter(data.ctypes.data, rows, stride, bpp,
+                           out.ctypes.data) != 0:
+        raise ValueError("PNG: unknown scanline filter type")
+    return out

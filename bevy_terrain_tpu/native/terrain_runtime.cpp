@@ -4,7 +4,7 @@
 // residency state machine (request counting, FIFO-of-unused-slots LRU,
 // best-loaded-ancestor walks; /root/reference/src/terrain_data/tile_atlas.rs:282-504)
 // and the async tile file loader (AsyncComputeTaskPool tasks,
-// tile_atlas.rs:77-149). This is the TPU build's C++ equivalent, exposed
+// tile_atlas.rs:77-149). This is this package's C++ equivalent, exposed
 // through a C ABI consumed via ctypes (bevy_terrain_tpu/native/__init__.py);
 // the Python implementation remains as a semantically identical fallback
 // and as the cross-check oracle in tests.
@@ -19,6 +19,7 @@
 #include <condition_variable>
 #include <cstdint>
 #include <cstdio>
+#include <cstdlib>
 #include <cstring>
 #include <deque>
 #include <mutex>
@@ -954,4 +955,42 @@ extern "C" void tr_downsample(const void *c0, const void *c1, const void *c2,
     downsample_impl<uint16_t>(children, ts, b, C,
                               static_cast<uint16_t *>(out));
   }
+}
+
+// PNG scanline reconstruction (PNG spec section 9): `data` holds `rows`
+// filtered scanlines of 1 + `stride` bytes (filter type byte first);
+// writes the `rows * stride` reconstructed bytes to `out`. `bpp` is the
+// filter unit in bytes (ceil(bits per pixel / 8)). Returns 0, or -1 on an
+// unknown filter type.
+extern "C" int32_t tr_png_unfilter(const uint8_t *data, int64_t rows,
+                                   int64_t stride, int32_t bpp, uint8_t *out) {
+  for (int64_t y = 0; y < rows; ++y) {
+    const uint8_t *f = data + y * (stride + 1);
+    const uint8_t ft = f[0];
+    const uint8_t *in = f + 1;
+    uint8_t *cur = out + y * stride;
+    const uint8_t *up = y > 0 ? out + (y - 1) * stride : nullptr;
+    for (int64_t x = 0; x < stride; ++x) {
+      const int a = x >= bpp ? cur[x - bpp] : 0;
+      const int b = up ? up[x] : 0;
+      const int c = (up && x >= bpp) ? up[x - bpp] : 0;
+      int pred;
+      switch (ft) {
+        case 0: pred = 0; break;
+        case 1: pred = a; break;
+        case 2: pred = b; break;
+        case 3: pred = (a + b) >> 1; break;
+        case 4: {
+          const int p = a + b - c;
+          const int pa = std::abs(p - a), pb = std::abs(p - b),
+                    pc = std::abs(p - c);
+          pred = (pa <= pb && pa <= pc) ? a : (pb <= pc ? b : c);
+          break;
+        }
+        default: return -1;
+      }
+      cur[x] = static_cast<uint8_t>(in[x] + pred);
+    }
+  }
+  return 0;
 }

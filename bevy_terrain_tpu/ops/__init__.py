@@ -1,6 +1,6 @@
-"""Device kernels (jnp / Pallas) — the per-frame hot path.
+"""Device kernels (jax.numpy / lax) — the per-frame hot path.
 
-This package is the TPU-native replacement for the reference's WGSL shaders
+This package is the replacement for the reference's WGSL shaders
 and wgpu compute passes (reference src/shaders/, src/render/):
 
 * :mod:`params`     — static config / per-frame uniform pytrees (replaces the

@@ -2,8 +2,8 @@
 
 The reference pulls vertices in the vertex shader from the compacted tile
 list (one indirect draw, vertices_per_tile x tile_count threads;
-/root/reference/src/shaders/render/vertex.wgsl:30-98). TPU version: one
-batched kernel over (tile_capacity, vertices_per_tile) lanes producing the
+the reference's src/shaders/render/vertex.wgsl:30-98). Here: one batched
+computation over (tile_capacity, vertices_per_tile) lanes producing the
 vertex buffers as dense tensors. Lanes beyond the live tile count are
 masked to zero.
 
@@ -26,9 +26,9 @@ from bevy_terrain_tpu.ops.refinement import RefinementOutput
 class GridMeshOutput(NamedTuple):
     """Fast-path frame mesh: one (G+1)x(G+1) vertex grid per tile.
 
-    TPU-native layout — the reference's degenerate-strip vertex pulling
-    (functions.wgsl:64-71) exists to avoid index buffers on GPUs; a grid +
-    shared index buffer is strictly better for a consumer of these tensors.
+    The reference's degenerate-strip vertex pulling (functions.wgsl:64-71)
+    exists to avoid index buffers in its draw call; a grid + shared index
+    buffer is strictly better for a consumer of these tensors.
     Use :func:`grid_to_strip_order` for buffer-level comparison against the
     reference layout.
     """
@@ -98,17 +98,10 @@ def generate_mesh_grid(
     F = cfg.tile_capacity
     G = cfg.grid_size
 
-    use_pallas = cfg.pallas_sampling and cfg.grid_size == 16
-    if use_pallas:
-        from bevy_terrain_tpu.ops import pallas_kernels
-
-        tiles_per_step = pallas_kernels.TILES_PER_STEP
-    else:
-        tiles_per_step = 64
     tiles, batch = ps.plan_patch_batch(
         tiles, uniforms, cfg, plan,
         n_blocks if n_blocks is not None else block_array.shape[0],
-        tiles_per_step, assume_sorted=assume_sorted,
+        assume_sorted=assume_sorted,
     )
     t_side = tiles.tile_side[:F]
     t_lod = jnp.maximum(tiles.tile_lod[:F], 0)
@@ -118,29 +111,21 @@ def generate_mesh_grid(
     # blend toward the coarser data lod by crossfading the RESAMPLE WEIGHTS
     # with their 1-2-1-smoothed form at the tile-center ratio (see
     # halfgrid_resample) — no second fetch, no smoothing passes over the
-    # half-grid in HBM. blend_per_vertex instead fetches the plain
+    # half-grid in device memory. blend_per_vertex instead fetches the plain
     # half-grid and value-mixes two window interpolations below (the
-    # reference's per-vertex crossfade; tighter cross-lod seams, ~+1 ms).
+    # reference's per-vertex crossfade; tighter cross-lod seams).
     per_vertex = cfg.blend and cfg.blend_per_vertex
-    if use_pallas:
-        h_mix = pallas_kernels.fetch_resample_cached(block_array, batch)[:F]
-        h_mix = h_mix / max_value
-    else:
-        patch = (fetch_fn or ps.fetch_patches_xla)(
-            block_array, batch.ids[:F, None]
-        )
-        h_mix = ps.halfgrid_resample(
-            patch, batch.geom[:F, 0:2], batch.geom[:F, 2], cfg,
-            ratio=batch.geom[:F, 4] if (cfg.blend and not per_vertex) else None,
-        ) / max_value
-        h_mix = ps.permute_halfgrid(h_mix * batch.geom[:F, 3][:, None, None])
+    patch = (fetch_fn or ps.fetch_patches_xla)(block_array, batch.ids[:, None])
+    h_mix = ps.halfgrid_resample(
+        patch, batch.geom[:, 0:2], batch.geom[:, 2], cfg,
+        ratio=batch.geom[:, 4] if (cfg.blend and not per_vertex) else None,
+    ) / max_value
+    h_mix = ps.permute_halfgrid(h_mix * batch.geom[:, 3][:, None, None])
     if per_vertex:
         h_coarse = ps.smooth_halfgrid_permuted(h_mix)
 
-    # --- per-vertex geometry on the grid layout (vertex.wgsl:30-71) ---
-    # computed on a FLAT (F, (G+1)^2) layout: a minor dim of G+1=17 pads to
-    # the 128-lane register width (7.5x wasted VPU lanes); flattened it pads
-    # 289 -> 384 (1.3x)
+    # --- per-vertex geometry on the grid layout (vertex.wgsl:30-71),
+    # computed on a flat (F, (G+1)^2) layout ---
     NV = (G + 1) * (G + 1)
     g = jnp.arange(G + 1, dtype=jnp.float32) / G
     guv = jnp.stack(jnp.meshgrid(g, g, indexing="xy"), axis=-1)  # (G+1, G+1, 2)
@@ -227,208 +212,6 @@ def generate_mesh_grid(
         tile_mask=tile_mask,
     )
     return mesh, tiles
-
-
-def generate_mesh_fused(
-    tiles: RefinementOutput,
-    block_array,
-    uniforms: FrameUniforms,
-    cfg: StaticTerrainConfig,
-    plan,
-    max_value: float,
-    interpret: bool = False,
-    albedo_blocks=None,
-    albedo_channels: int = 0,
-    albedo_bits: int = 0,
-    ablate: frozenset = frozenset(),
-    shade_spec=None,
-    albedo_fast: bool = True,
-    albedo_combined: bool = False,
-):
-    """Single fused Pallas kernel for the whole planar mesh stage.
-
-    The XLA-staged pipeline pays heavy HBM padding costs on every
-    (.., 17)/(.., 33) minor-dim intermediate (a (F, 33, 33) f32 half grid
-    is 167 MB physical); the fused kernel keeps the half-grid in VMEM and
-    emits flat (steps, 102, T*17) products (see pallas_kernels._mesh_kernel
-    for the row layout). Use :func:`fused_to_grid` for the (F, G+1, G+1)
-    view. Planar, grid_size 16, TPU only.
-
-    Spherical terrains require ``high_precision`` (the Taylor relative
-    path is the kernel's near-field position source, as in the flagship
-    Earth config).
-
-    ``albedo_fast=True`` (the default since r04) resamples packed
-    channels of <= 8 bits with bf16 tent weights / texel values (f32 MXU
-    accumulation, no per-channel mean-centering). Byte values are exact
-    in bf16; the filtered result differs from the exact-f32 path by at
-    most ~1 LSB of 8-bit color (measured max 0.89, mean 0.17 LSB) —
-    sampler-grade for color, same class as GPU bilinear units' ~9-bit
-    weights. If a packed <= 8-bit channel carries data where exact-f32
-    filtering matters (IDs, masks), pass ``albedo_fast=False``; 16-bit
-    channels (Rg16) always take the exact path regardless of this flag.
-
-    Returns (raw, sorted_tiles).
-    """
-    from bevy_terrain_tpu.ops import pallas_kernels as pk
-    from bevy_terrain_tpu.ops import patch_sampling as ps
-
-    assert cfg.grid_size == 16
-    assert cfg.spherical == cfg.high_precision, (
-        "fused kernel: planar runs without hp; spherical requires hp"
-    )
-    F = cfg.tile_capacity
-    tiles, batch = ps.plan_patch_batch(
-        tiles, uniforms, cfg, plan, block_array.shape[0], pk.TILES_PER_STEP
-    )
-    Fp = batch.slots.shape[0]
-    steps = Fp // pk.TILES_PER_STEP
-
-    def pad(x):
-        return jnp.concatenate([x, jnp.zeros((Fp - F,), x.dtype)]) if Fp > F else x
-
-    live = (jnp.arange(Fp, dtype=jnp.int32) < tiles.tile_count).astype(jnp.float32)
-    # step flags (mesh_fused): 0 dead / 1 live / 2 live+hp. Live lanes are
-    # a PREFIX of the sorted list (dead-capacity tail), so a step is live
-    # iff its first lane is — kernel cost tracks tile_count, not capacity
-    live_steps = (
-        tiles.tile_count
-        > jnp.arange(steps, dtype=jnp.int32) * pk.TILES_PER_STEP
-    )
-    step_flags = live_steps.astype(jnp.int32)
-    cols = [
-        live,
-        pad(jnp.maximum(tiles.tile_lod[:F], 0).astype(jnp.float32)),
-        pad(tiles.tile_xy[:F, 0].astype(jnp.float32)),
-        pad(tiles.tile_xy[:F, 1].astype(jnp.float32)),
-    ]
-    if cfg.spherical:
-        side_i = pad(tiles.tile_side[:F])
-        cols.append(side_i.astype(jnp.float32))
-        t = uniforms.taylor
-        for table in (t.c, t.c_s, t.c_t, t.c_ss, t.c_st, t.c_tt):
-            rows3 = coords.take_side_rows(table, side_i, cfg.side_count)
-            cols += [rows3[:, 0], rows3[:, 1], rows3[:, 2]]
-        oxy = coords.take_side_rows(t.origin_xy, side_i, cfg.side_count)
-        ouv = coords.take_side_rows(t.origin_uv, side_i, cfg.side_count)
-        cols += [oxy[:, 0].astype(jnp.float32), oxy[:, 1].astype(jnp.float32),
-                 ouv[:, 0], ouv[:, 1]]
-        # per-tile world/normal transforms precomposed with the side's
-        # cube placement (EXACT: side matrices are signed permutations),
-        # so the kernel skips the per-lane 6-way side select entirely
-        # HIGHEST precision: these compose WORLD-scale values (6.4e6 m)
-        # with signed permutations — a default bf16 pass on TPU quantizes
-        # the radius to ~16 km steps (one bf16 ulp at 2^22), which the
-        # live-TPU spherical golden caught as a systematic 14 km position
-        # offset (tests/test_goldens.py::TestTpuFusedGoldens)
-        wm6 = jnp.einsum(
-            "ij,sjk->sik", uniforms.world_from_local[:, :3],
-            jnp.asarray(coords._SIDE_MATS),
-            precision=jax.lax.Precision.HIGHEST,
-        ).reshape(6, 9)
-        nm6 = jnp.einsum(
-            "ij,sjk->sik", uniforms.normal_matrix,
-            jnp.asarray(coords._SIDE_MATS),
-            precision=jax.lax.Precision.HIGHEST,
-        ).reshape(6, 9)
-        wm = coords.take_side_rows(wm6, side_i, cfg.side_count)  # (Fp, 9)
-        nm = coords.take_side_rows(nm6, side_i, cfg.side_count)
-        cols += [wm[:, r] for r in range(9)]
-        cols += [nm[:, r] for r in range(9)]
-        if cfg.high_precision:
-            # conservative per-step hp mask: a lane can only be inside
-            # the precision threshold if its tile's closest point
-            # (refinement's own subdivision-coordinate distance) is
-            # within threshold + an f32-noise margin; steps with no such
-            # tile skip both in-kernel Taylor chains (pl.when)
-            lod_i = pad(jnp.maximum(tiles.tile_lod[:F], 0))
-            xy_i = jnp.stack(
-                [pad(tiles.tile_xy[:F, 0]), pad(tiles.tile_xy[:F, 1])], axis=-1
-            )
-            sub_uv = coords.compute_subdivision_coordinate(
-                side_i, lod_i, xy_i, t, cfg.origin_lod, cfg.side_count
-            )
-            dmin = coords.approximate_view_distance(
-                side_i, lod_i, xy_i, sub_uv, uniforms, cfg
-            )
-            margin = 1.0 + 4e-6 * jnp.max(jnp.abs(uniforms.view_world_position))
-            tile_hp = (
-                dmin < uniforms.precision_threshold_distance * 1.05 + margin
-            ) & (cols[0] > 0.0)
-            hp_any = jnp.any(tile_hp.reshape(steps, pk.TILES_PER_STEP), axis=1)
-            step_flags = jnp.where(
-                live_steps, jnp.where(hp_any, 2, 1), 0
-            ).astype(jnp.int32)
-        else:
-            step_flags = jnp.where(live_steps, 2, 0).astype(jnp.int32)
-    tile_params = jnp.stack(cols, axis=-1)  # (Fp, 4) or (Fp, 45)
-    fs = pk.pack_mesh_scalars(uniforms, cfg, max_value)
-    raw = pk.mesh_fused(
-        block_array, batch, tile_params, fs, step_flags,
-        spherical=cfg.spherical, origin_lod=cfg.origin_lod,
-        interpret=interpret, ellipsoidal=cfg.ellipsoidal,
-        albedo_blocks=albedo_blocks, albedo_channels=albedo_channels,
-        albedo_bits=albedo_bits, ablate=ablate, shade=shade_spec,
-        albedo_fast=albedo_fast, albedo_combined=albedo_combined,
-    )
-    return raw, tiles
-
-
-def fused_to_grid(raw, tiles: RefinementOutput, cfg: StaticTerrainConfig,
-                  uniforms: FrameUniforms | None = None) -> GridMeshOutput:
-    """Reshape the fused kernel's flat products into the GridMeshOutput
-    layout. Spherical normals come straight from the kernel's extra
-    output rows (``uniforms`` is accepted for API compatibility)."""
-    import numpy as np
-
-    from bevy_terrain_tpu.ops import pallas_kernels as pk
-
-    steps, _, lanes = raw.shape
-    T = lanes // pk.GV
-    F = cfg.tile_capacity
-    G = cfg.grid_size
-
-    def rows(k, ch=1):
-        x = raw[:, pk.GV * k:pk.GV * (k + 1), :].reshape(steps, pk.GV, T, pk.GV)
-        return jnp.transpose(x, (0, 2, 1, 3)).reshape(steps * T, pk.GV, pk.GV)[:F]
-
-    heights = rows(0)
-    positions = jnp.stack([rows(1), rows(2), rows(3)], axis=-1)
-    uvs = jnp.stack([rows(4), rows(5)], axis=-1)
-    if cfg.spherical:
-        # the kernel emits its blend-selected unit world normals as rows
-        # 6..8 (recomputing them here from the morphed uv grid measured
-        # ~0.26 ms/frame at capacity 4096)
-        normals = jnp.stack([rows(6), rows(7), rows(8)], axis=-1)
-    else:
-        up = jnp.asarray(np.array([0.0, 1.0, 0.0], np.float32))
-        normals = jnp.broadcast_to(up, (F, G + 1, G + 1, 3))
-    tile_mask = jnp.arange(F, dtype=jnp.int32) < tiles.tile_count
-    return GridMeshOutput(
-        positions=positions, normals=normals, uvs=uvs, heights=heights,
-        tile_mask=tile_mask,
-    )
-
-
-def fused_albedo_to_grid(raw, cfg: StaticTerrainConfig, channels: int,
-                         max_value: float):
-    """Extract the merged kernel's fused-albedo rows (generate_mesh_fused
-    with ``albedo_channels=C``) as (F, G+1, G+1, C) f32 in [0, 1] — the
-    same product as sample_attachment_vertices, one kernel earlier."""
-    from bevy_terrain_tpu.ops import pallas_kernels as pk
-
-    steps, total_rows, lanes = raw.shape
-    T = lanes // pk.GV
-    F = cfg.tile_capacity
-    base = total_rows // pk.GV - channels
-
-    def rows(k):
-        x = raw[:, pk.GV * k:pk.GV * (k + 1), :].reshape(steps, pk.GV, T, pk.GV)
-        return jnp.transpose(x, (0, 2, 1, 3)).reshape(steps * T, pk.GV, pk.GV)[:F]
-
-    return jnp.stack(
-        [rows(base + c) for c in range(channels)], axis=-1
-    ) / max_value
 
 
 def generate_mesh(

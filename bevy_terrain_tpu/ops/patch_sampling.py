@@ -1,27 +1,26 @@
-"""Gather-free terrain height sampling: per-tile patches + MXU resampling.
+"""Terrain height sampling at tile granularity: per-tile patches + tent
+resampling.
 
-TPU v5e has no per-lane gather: XLA lowers per-vertex texture fetches to a
-serial loop (~12.5 ns/element — 8 taps x 4.7M vertices = ~0.5 s/frame).
-This module replaces the reference's per-vertex ``textureSampleLevel``
-(vertex.wgsl:85-98 + attachments.wgsl:12-24) with a TPU-native pipeline
-that only ever fetches at *tile* granularity:
+This replaces the reference's per-vertex ``textureSampleLevel``
+(vertex.wgsl:85-98 + attachments.wgsl:12-24) with a pipeline that fetches
+at *tile* granularity and does the rest as dense per-tile arithmetic:
 
-1. **Per-tile atlas lookup** — one entry fetch per (tile, blend target)
-   instead of per vertex. Valid because blend data lods are coarser than
-   geometry lods (blend_distance 2 << morph_distance 16, terrain_view.rs),
-   so a whole tile maps into one tile-tree cell at the blend lod.
+1. **Per-tile atlas lookup** — one entry fetch per tile instead of per
+   vertex. Valid because blend data lods are coarser than geometry lods
+   (blend_distance 2 << morph_distance 16, terrain_view.rs), so a whole
+   tile maps into one tile-tree cell at the blend lod.
 2. **Blocked patch fetch** — attachment mips >= 1 are stored as a single
    unified array of row-interleaved 2x2 block quads; each tile fetches the
    quad covering its uv window at the mip whose texel density matches the
    vertex half-grid (~= GPU vertex texture fetch with explicit LOD). ONE
-   16 KB quad load per tile — the only dynamic fetch.
-3. **Tent-weight resample (MXU)** — the 33x33 half-grid heights of the
-   tile are two small batched matmuls with tent (hat) weight matrices:
-   exact bilinear interpolation of the patch evaluated at the half-grid.
-4. **Static-window vertex interpolation (VPU)** — a morphed vertex uv lies
+   16 KB quad gather per tile.
+3. **Tent-weight resample** — the 33x33 half-grid heights of the tile are
+   two small batched matmuls with tent (hat) weight matrices: exact
+   bilinear interpolation of the patch evaluated at the half-grid.
+4. **Static-window vertex interpolation** — a morphed vertex uv lies
    inside a statically-known 3x3 half-grid window (morph blends toward the
    even grid, functions.wgsl:35-49), so per-vertex heights are an
-   elementwise 9-tap weighted sum over strided slices. No gather.
+   elementwise 9-tap weighted sum over strided slices.
 
 The blend between two data lods samples the coarse lod from the same patch
 by crossfading the resample weights toward their 1-2-1-smoothed closed
@@ -30,7 +29,7 @@ saving both the second fetch round and any smoothing pass; and
 the morphed vertex positions interpolate the half-grid rather than raw
 texels (band-limited to 2x the vertex density — detail beyond that cannot
 be represented by the mesh anyway). The per-vertex-gather path
-(sampling.py) remains available for bit-level parity testing.
+(sampling.py, meshgen.generate_mesh) is the exact reference.
 """
 
 from __future__ import annotations
@@ -49,16 +48,12 @@ BLOCK = 32
 
 # Block arrays are stored as *row-interleaved overlapping quads*: entry i
 # holds the 2x2 block window (i, i+1, i+g, i+g+1) of its mip laid out as
-# Q[r, 32q + c] = block_q[r, c] — a dense (32, 128) i32-native tile (zero
-# lane padding), so ONE 16 KB DMA fetches a tile's whole patch AND the
-# patch halves are plain lane slices (top = Q[:, :64] is [tl | tr], bottom
-# = Q[:, 64:] is [bl | br]) — no in-kernel unpack shuffles at all. The
-# patch fetch at frame scale is HBM random-access *latency* bound (16 KB
-# vs 4 KB DMAs measured within 10%), so DMA count per tile is the whole
-# cost: 4 singles = 2.16 ms, 2 pairs = 1.56 ms, 1 quad is the floor. Quad
-# validity relies on patch_geometry clamping bx/by to g-2, which makes
-# tr = tl+1 and bl = tl+g unconditionally. The 4x storage equals the
-# lane-padded naive layout's footprint — no capacity regression.
+# Q[r, 32q + c] = block_q[r, c] — a dense (32, 128) int32 tile, so ONE
+# gathered row fetches a tile's whole patch AND the patch halves are plain
+# slices (top = Q[:, :64] is [tl | tr], bottom = Q[:, 64:] is [bl | br]).
+# Quad validity relies on patch_geometry clamping bx/by to g-2, which
+# makes tr = tl+1 and bl = tl+g unconditionally. The price is 4x the
+# texel storage of mips >= 1.
 QUAD_SHAPE = (BLOCK, 4 * BLOCK)
 
 
@@ -156,9 +151,8 @@ def blocks_from_tile_packed(mips: list[np.ndarray], plan: PatchPlan) -> np.ndarr
 
     A multi-channel texel is one word in the reference's texture formats
     (Rgba8 = 4 bytes, Rg16 = 2 u16s — src/terrain_data/mod.rs:38-84);
-    storing it planar would cost one ~600 us DMA-floor fused-sampler pass
-    PER channel (measured, docs/perf_notes.md). Packed, the fused sampler
-    fetches once and unpacks in-VMEM.
+    storing it planar would cost one patch gather PER channel. Packed, the
+    sampler gathers once and unpacks each channel with shifts.
     """
     channels = mips[0].shape[-1]
     bits = 8 * mips[0].dtype.itemsize
@@ -174,66 +168,11 @@ def blocks_from_tile_packed(mips: list[np.ndarray], plan: PatchPlan) -> np.ndarr
 # ---------------------------------------------------------------------------
 
 
-def per_tile_lookup(tiles_side, tiles_lod, tiles_xy, uniforms, cfg: StaticTerrainConfig):
-    """Per-tile blend target + atlas entry for targets {t0, t0-1}.
-
-    Mirrors the per-vertex lookup_tile chain (functions.wgsl:232-246) at
-    tile granularity. Returns (t0, tile-center blend ratio, entry flat
-    index at t0, entry flat index at t0 - 1).
-    """
-    center_uv = jnp.full(tiles_xy.shape, 0.5, jnp.float32)
-    dist = coords.approximate_view_distance(
-        tiles_side, tiles_lod, tiles_xy, center_uv, uniforms, cfg
-    )
-    blend_lod, blend_ratio = coords.compute_blend(dist, uniforms, cfg)
-    if cfg.tile_tree_lod:
-        # TILE_TREE_LOD shader def (functions.wgsl:232-246 #ifdef branch):
-        # take the deepest tree window containing the coordinate instead of
-        # the computed blend lod. Debug/diagnostic mode — the lookup_best
-        # walk gathers tiny per-lod origin tables per lane, so it costs
-        # more than the default path.
-        _, walk_lod, _, _ = coords.lookup_best(
-            uniforms.entries, uniforms.origins, tiles_side, tiles_lod,
-            tiles_xy, center_uv, cfg,
-        )
-        t0 = jnp.minimum(walk_lod, tiles_lod)
-    else:
-        t0 = jnp.minimum(blend_lod, tiles_lod)
-
-    def entry_at(target):
-        target_c = jnp.clip(target, 0, cfg.lod_count - 1)
-        t_lod, t_xy, _ = coords.coordinate_change_lod(
-            tiles_lod, tiles_xy, jnp.zeros(tiles_xy.shape, jnp.float32), target_c
-        )
-        tree_xy = t_xy % jnp.int32(cfg.tree_size)
-        flat = (
-            (tiles_side * cfg.lod_count + t_lod) * cfg.tree_size + tree_xy[..., 0]
-        ) * cfg.tree_size + tree_xy[..., 1]
-        return flat
-
-    return t0, blend_ratio, entry_at(t0), entry_at(jnp.maximum(t0 - 1, 0))
-
-
 class PatchBatch(NamedTuple):
-    """Per-frame patch-fetch schedule: tiles sorted by quad id + the
-    streaming-cache metadata consumed by ``fetch_resample_cached``.
+    """Per-frame patch-fetch schedule for the quad-id-sorted tile list."""
 
-    Deep tiles sample coarse ancestors, so a frame's F patch fetches hit
-    only U << F distinct atlas quads (measured 611 for 8173 tiles at the
-    8k^2 bench frame). Sorting the tile list by quad id groups the
-    duplicates; the Pallas kernel then DMAs each unique quad ONCE into a
-    VMEM-resident cache and every tile reads its quad from VMEM — the
-    per-tile copy issue overhead (~100 ns each, the measured bottleneck of
-    the one-DMA-per-tile kernel) collapses to U issues.
-    """
-
-    uq: jax.Array  # (Fp,) i32 unique quad ids in rank order (clamped valid)
-    slots: jax.Array  # (Fp,) i32 quad rank per tile (nondecreasing)
-    rank_lo: jax.Array  # (steps,) i32 first rank touched by each step
-    rank_hi: jax.Array  # (steps,) i32 last rank touched by each step
-    n_unique: jax.Array  # (1,) i32
-    geom: jax.Array  # (Fp, 8) f32: p0x p0y dp valid ratio 0 0 0
-    ids: jax.Array  # (Fp,) i32 sorted tl quad ids (XLA-fallback fetch)
+    geom: jax.Array  # (F, 5) f32: p0x p0y dp valid ratio
+    ids: jax.Array  # (F,) i32 sorted tl quad ids
 
 
 def plan_patch_batch(
@@ -242,15 +181,16 @@ def plan_patch_batch(
     cfg: StaticTerrainConfig,
     plan: PatchPlan,
     n_blocks: int,
-    tiles_per_step: int,
     assume_sorted: bool = False,
 ):
     """Per-tile atlas lookup + patch geometry + quad-id sort (see PatchBatch).
 
     Returns (sorted_tiles: RefinementOutput with (F,) arrays, PatchBatch).
-    With ``assume_sorted`` the tile list is taken to be already in quad-id
-    order for this plan (true for sibling attachments sharing the height
-    attachment's plan) and the sort is skipped, preserving row order.
+    Sorting by quad id groups tiles that read the same atlas quad (deep
+    tiles sample coarse ancestors). With ``assume_sorted`` the tile list is
+    taken to be already in quad-id order for this plan (true for sibling
+    attachments sharing the height attachment's plan) and the sort is
+    skipped, preserving row order.
     """
     from bevy_terrain_tpu.ops.refinement import RefinementOutput
 
@@ -260,7 +200,8 @@ def plan_patch_batch(
     t_xy = tiles.tile_xy[:F]
 
     # --- per-tile blend target + atlas entry (functions.wgsl:232-246 at
-    # tile granularity; see per_tile_lookup) ---
+    # tile granularity: blend data lods are coarser than geometry lods,
+    # so a whole tile maps into one tile-tree cell at the blend lod) ---
     center_uv = jnp.full(t_xy.shape, 0.5, jnp.float32)
     dist = coords.approximate_view_distance(
         t_side, t_lod, t_xy, center_uv, uniforms, cfg
@@ -276,8 +217,8 @@ def plan_patch_batch(
     e_lod, e_xy, _ = coords.coordinate_change_lod(
         t_lod, t_xy, jnp.zeros(t_xy.shape, jnp.float32), jnp.clip(t0, 0, cfg.lod_count - 1)
     )
-    a_idx, a_lod = coords.lookup_entries_matmul(
-        uniforms.entries, t_side, e_lod, e_xy % jnp.int32(cfg.tree_size), cfg
+    a_idx, a_lod = coords.lookup_tile_tree_entry(
+        uniforms.entries, t_side, e_lod, e_xy, cfg
     )
     a_lod = jnp.where(a_lod < 0, t_lod, a_lod)
 
@@ -308,60 +249,15 @@ def plan_patch_batch(
             )
         )
 
-    # --- quad ranks + unique-id list (rank order) ---
-    from bevy_terrain_tpu.ops.pallas_kernels import U_PAD
-
-    first = jnp.concatenate(
-        [jnp.ones((1,), jnp.bool_), s_key[1:] != s_key[:-1]]
-    )
-    rank = jnp.cumsum(first.astype(jnp.int32)) - 1  # (F,) nondecreasing
-    n_unique = jnp.minimum(rank[-1] + 1, U_PAD)
-    # tiles past the unique-id cap (pathological frames; see U_PAD) are
-    # masked out rather than given a wrong quad
-    s_valid = jnp.where(rank < U_PAD, s_valid, 0.0)
-    rank = jnp.minimum(rank, U_PAD - 1)
-    rank_key = jnp.where(first, rank, jnp.int32(2**31 - 1))
-    _, uq = jax.lax.sort((rank_key, s_key), num_keys=1, is_stable=True)
-    uq = jnp.clip(uq[:U_PAD] if F > U_PAD else uq, 0, n_blocks - 1)
-    if uq.shape[0] < U_PAD:
-        uq = jnp.concatenate(
-            [uq, jnp.zeros((U_PAD - uq.shape[0],), jnp.int32)]
-        )
-
-    # --- pad to the kernel step size ---
-    T = tiles_per_step
-    pad = (-F) % T
-    Fp = F + pad
-    geom = jnp.stack(
-        [s_p0x, s_p0y, s_dp, s_valid, s_ratio,
-         jnp.zeros_like(s_dp), jnp.zeros_like(s_dp), jnp.zeros_like(s_dp)],
-        axis=-1,
-    )
-    slots = rank
-    s_ids = jnp.clip(s_key, 0, n_blocks - 1)
-    if pad:
-        # padded lanes repeat the last lane (keeps ranks nondecreasing);
-        # their valid flag is whatever the dead-lane tail carries (masked
-        # to zero heights by the dead-lane valid=0 path downstream)
-        geom = jnp.concatenate([geom, jnp.tile(geom[-1:], (pad, 1))], axis=0)
-        slots = jnp.concatenate([slots, jnp.tile(slots[-1:], (pad,))], axis=0)
-        s_ids = jnp.concatenate([s_ids, jnp.tile(s_ids[-1:], (pad,))], axis=0)
-    steps = Fp // T
-    rank_lo = slots.reshape(steps, T)[:, 0]
-    rank_hi = slots.reshape(steps, T)[:, -1]
-
+    geom = jnp.stack([s_p0x, s_p0y, s_dp, s_valid, s_ratio], axis=-1)
     sorted_tiles = RefinementOutput(
         tile_side=s_side,
-        tile_lod=jnp.where(jnp.arange(F) < tiles.tile_count, s_lod, -1),
+        tile_lod=jnp.where(lane < tiles.tile_count, s_lod, -1),
         tile_xy=jnp.stack([s_x, s_y], axis=-1),
         tile_count=tiles.tile_count,
         overflow=tiles.overflow,
     )
-    batch = PatchBatch(
-        uq=uq, slots=slots, rank_lo=rank_lo, rank_hi=rank_hi,
-        n_unique=n_unique.reshape(1), geom=geom, ids=s_ids,
-    )
-    return sorted_tiles, batch
+    return sorted_tiles, PatchBatch(geom=geom, ids=jnp.clip(s_key, 0, n_blocks - 1))
 
 
 def patch_geometry(
@@ -431,7 +327,7 @@ def fetch_patches_xla(block_array, ids, keep_int: bool = False):
 
 def halfgrid_resample(patch, p0, dp, cfg: StaticTerrainConfig, ratio=None):
     """Exact bilinear of the patch at the (HG+1)^2 half-grid points, as two
-    batched tent-weight matmuls (MXU). Returns (F, HG+1, HG+1) f32 (raw
+    batched tent-weight matmuls. Returns (F, HG+1, HG+1) f32 (raw
     texel values; caller normalizes).
 
     With ``ratio`` (per-tile blend fraction toward the coarser data lod),
@@ -466,9 +362,15 @@ def halfgrid_resample(patch, p0, dp, cfg: StaticTerrainConfig, ratio=None):
 
     wx = weights(p0[:, 0])
     wy = weights(p0[:, 1])
-    # rows: (F, K, P) @ (F, P, P) -> (F, K, P); cols -> (F, K, K)
-    rows = jnp.einsum("fkp,fpq->fkq", wy, patch, preferred_element_type=jnp.float32)
-    return jnp.einsum("fkq,flq->fkl", rows, wx, preferred_element_type=jnp.float32)
+    # rows: (F, K, P) @ (F, P, P) -> (F, K, P); cols -> (F, K, K).
+    # HIGHEST: the resample stands in for the reference's exact bilinear
+    # texture fetch; a default-precision f32 dot may run in TF32 on the
+    # GPU (11 significant bits), which would round 16-bit texel values.
+    hi = jax.lax.Precision.HIGHEST
+    rows = jnp.einsum("fkp,fpq->fkq", wy, patch, precision=hi,
+                      preferred_element_type=jnp.float32)
+    return jnp.einsum("fkq,flq->fkl", rows, wx, precision=hi,
+                      preferred_element_type=jnp.float32)
 
 
 def smooth_halfgrid(half):
@@ -496,7 +398,7 @@ def halfgrid_perm(K: int) -> np.ndarray:
 
 def permute_halfgrid(half):
     """Reorder a natural (F, K, K) half-grid into evens-first rows/cols
-    (the layout the Pallas kernel emits and _window9 consumes)."""
+    (the layout _window9 consumes)."""
     p = halfgrid_perm(half.shape[-1])
     return half[:, p][:, :, p]
 
@@ -514,8 +416,13 @@ def smooth_halfgrid_permuted(half_p):
         A[i, hi] += 0.25
     p = halfgrid_perm(K)
     Ap = jnp.asarray(A[np.ix_(p, p)])
-    out = jnp.einsum("kl,fln->fkn", Ap, half_p, preferred_element_type=jnp.float32)
-    return jnp.einsum("fkn,ln->fkl", out, Ap, preferred_element_type=jnp.float32)
+    # HIGHEST: exact f32 smoothing of the resampled heights (a TF32 pass
+    # would round them to 11 significant bits)
+    hi = jax.lax.Precision.HIGHEST
+    out = jnp.einsum("kl,fln->fkn", Ap, half_p, precision=hi,
+                     preferred_element_type=jnp.float32)
+    return jnp.einsum("fkn,ln->fkl", out, Ap, precision=hi,
+                      preferred_element_type=jnp.float32)
 
 
 def _window9(half_p, G: int):
@@ -525,9 +432,9 @@ def _window9(half_p, G: int):
     ([e0..eG*2?, o0..]): vertex i's window covers natural half-grid indices
     {max(2i-2, 0) + b}, which in this layout are UNIT-stride slices of the
     even block (b=0: e[max(i-1,0)], b=2: e[i]) and odd block (b=1:
-    o[i-1], clamped to e0 at i=0). Natural-order stride-2 lane slices on
-    the 35 MB half tensor cost up to ~1.1 ms each when XLA's layout
-    assignment materializes them transposed; these are plain slices.
+    o[i-1], clamped to e0 at i=0). Natural-order stride-2 slices would
+    invite XLA to materialize transposed copies of the half tensor; these
+    are plain unit-stride slices.
 
     Returned lazily as a dict of 9 (F, G+1, G+1) terms: consumed
     term-by-term they fuse into the weighted sum.
@@ -550,8 +457,7 @@ def _window9(half_p, G: int):
 def vertex_values_from_halfgrid(half_p, morphed_uv, cfg: StaticTerrainConfig):
     """Interpolate half-grid values at morphed vertex uvs — elementwise.
 
-    ``half_p``: (F, HG+1, HG+1) in evens-first order (permute_halfgrid /
-    the Pallas kernel output). ``morphed_uv``: (F, G+1, G+1, 2) with u in
+    ``half_p``: (F, HG+1, HG+1) in evens-first order (permute_halfgrid). ``morphed_uv``: (F, G+1, G+1, 2) with u in
     [even_u, u] per vertex. Returns (F, G+1, G+1) f32.
     """
     G = cfg.grid_size
@@ -580,7 +486,6 @@ def sample_attachment_vertices(
     cfg: StaticTerrainConfig,
     plan: PatchPlan,
     max_value: float,
-    plan_matches_frame: bool = True,
     packed_channels: int = 0,
     packed_bits: int = 0,
 ):
@@ -593,76 +498,13 @@ def sample_attachment_vertices(
     [0, 1].
 
     The input tiles are the frame's canonical (quad-id-sorted) list and the
-    output row order must match the mesh, so no re-sort happens here. When
-    this attachment's ``plan`` equals the height attachment's (same
-    texture_size/border/mips — the common case), its quad ids are monotone
-    in the same order and the streaming-cache kernel applies; otherwise
-    (``plan_matches_frame=False``) the XLA fallback fetch runs per tile.
+    output row order must match the mesh, so no re-sort happens here.
     """
     F = cfg.tile_capacity
-    use_pallas = (
-        cfg.pallas_sampling and cfg.grid_size == 16 and plan_matches_frame
-    )
-    if use_pallas:
-        from bevy_terrain_tpu.ops import pallas_kernels
-
-        tiles_per_step = pallas_kernels.TILES_PER_STEP
-    else:
-        tiles_per_step = 64
     _, batch = plan_patch_batch(
-        tiles, uniforms, cfg, plan, block_arrays[0].shape[0], tiles_per_step,
+        tiles, uniforms, cfg, plan, block_arrays[0].shape[0],
         assume_sorted=True,
     )
-    # attachments sample one data lod (ratio 0): zero the crossfade column
-    geom = batch.geom.at[:, 4].set(0.0)
-    batch = batch._replace(geom=geom)
-
-    channels = []
-    if use_pallas:
-        # fully fused channel sampler: fetch + resample + window interp at
-        # the frame's morphed uvs in ONE kernel per channel
-        # (pallas_kernels.attach_sample_fused). Pack the grid uvs into the
-        # kernel's (steps, 2*GV, LANES) row layout once.
-        T = tiles_per_step
-        G1 = cfg.grid_size + 1
-        Fp = batch.slots.shape[0]
-        steps = Fp // T
-        pad_n = Fp - F
-
-        def rows_of(comp):
-            x = morphed_uv[..., comp]  # (F, G1, G1)
-            if pad_n:
-                x = jnp.concatenate(
-                    [x, jnp.zeros((pad_n, G1, G1), x.dtype)], axis=0)
-            x = x.reshape(steps, T, G1, G1)
-            return jnp.transpose(x, (0, 2, 1, 3)).reshape(steps, G1, T * G1)
-
-        uvrows = jnp.concatenate([rows_of(0), rows_of(1)], axis=1)
-        # same live-step gating as the mesh kernel: the sorted list's
-        # dead-capacity tail occupies whole trailing steps
-        live_steps = (
-            tiles.tile_count > jnp.arange(steps, dtype=jnp.int32) * T
-        ).astype(jnp.int32)
-
-        def vals_of(raw_gv):
-            return jnp.transpose(
-                raw_gv.reshape(steps, G1, T, G1), (0, 2, 1, 3)
-            ).reshape(Fp, G1, G1)[:F] / max_value
-
-        if packed_channels:
-            # ONE fused pass for every channel: the quad fetch is the
-            # DMA-count-bound cost and happens once for the packed word
-            raw = pallas_kernels.attach_sample_fused_packed(
-                block_arrays[0], batch, uvrows, packed_channels, packed_bits,
-                live_steps=live_steps)
-            return jnp.stack(
-                [vals_of(raw[:, c * G1:(c + 1) * G1])
-                 for c in range(packed_channels)], axis=-1)
-        for block_array in block_arrays:
-            raw = pallas_kernels.attach_sample_fused(
-                block_array, batch, uvrows, live_steps=live_steps)
-            channels.append(vals_of(raw))
-        return jnp.stack(channels, axis=-1)
 
     def xla_channel(patch):
         half = halfgrid_resample(
@@ -691,8 +533,8 @@ def sample_attachment_vertices(
 def grad_tile_span(mesh, uniforms, cfg: StaticTerrainConfig,
                    max_anisotropy: float = 16.0):
     """Per-TILE anisotropic footprint — the SAMPLE_GRAD answer for COLOR
-    attachments (VERDICT r2 item 9; reference attachments.wgsl:12-24
-    textureSampleGrad with anisotropy 16).
+    attachments (reference attachments.wgsl:12-24 textureSampleGrad with
+    anisotropy 16).
 
     The reference's footprint is the screen-pixel preimage, elongated at
     grazing angles along the view direction's surface projection. The
@@ -769,7 +611,7 @@ def grad_tile_span(mesh, uniforms, cfg: StaticTerrainConfig,
 def sample_attachment_vertices_grad(
     block_arrays, tiles, morphed_uv, mesh, uniforms,
     cfg: StaticTerrainConfig, plan: PatchPlan, max_value: float,
-    taps: int = 4, plan_matches_frame: bool = True,
+    taps: int = 4,
     max_anisotropy: float = 16.0, packed_channels: int = 0,
     packed_bits: int = 0,
 ):
@@ -780,13 +622,12 @@ def sample_attachment_vertices_grad(
 
     The patch fetch is shared across taps; per tap the cost is one
     half-grid resample (2 batched tent matmuls) + one window
-    interpolation. Always the staged XLA path (the fused Pallas kernel
-    bakes single-tap geometry); quality/cost measured in
-    docs/perf_notes.md (keep-or-retire per VERDICT r2 item 9).
+    interpolation. Its quality is tested in
+    tests/test_patch_sampling.py; its cost on the card is not measured.
     """
     F = cfg.tile_capacity
     _, batch = plan_patch_batch(
-        tiles, uniforms, cfg, plan, block_arrays[0].shape[0], 64,
+        tiles, uniforms, cfg, plan, block_arrays[0].shape[0],
         assume_sorted=True,
     )
     p0 = batch.geom[:F, 0:2]

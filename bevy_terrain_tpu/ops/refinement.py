@@ -7,7 +7,7 @@ of src/render/tiling_prepass.rs:204-271). All tiles in the queue at pass k
 have lod == k (roots seed at lod 0, each pass emits lod k+1 children), so
 the algorithm is level-synchronous by construction.
 
-TPU version (two-stage, no atomics/scatters/gathers):
+Here (two-stage, no atomics/scatters/gathers):
 
 1. **Dense levels 0..Ld** — every tile of every shallow level is ONE
    (side, 2^k, 2^k) mask grid; reachability cascades by 2x mask
@@ -17,10 +17,9 @@ TPU version (two-stage, no atomics/scatters/gathers):
    emissions at once. No per-level synchronization whatsoever.
 2. **Queue spill beyond Ld** (deep planetary zoom) — the still-dividing
    frontier's children seed the original level-synchronous loop: per
-   level, a stable sort partition (emitted | divided | dead; TPU has no
-   efficient scatter — XLA lowers it to a serial per-lane loop, ~500us
-   per level at 16k lanes — while ``lax.sort`` is a vectorized sorting
-   network, ~18us), appends via contiguous ``dynamic_update_slice``, and
+   level, a stable sort partition (emitted | divided | dead — a sort-based
+   compaction; prefix sum + scatter is the alternative on hardware with
+   fast scatters), appends via contiguous ``dynamic_update_slice``, and
    4x child expansion from a contiguous ``dynamic_slice``.
 """
 
@@ -97,7 +96,7 @@ def refine_tiles(uniforms: FrameUniforms, cfg: StaticTerrainConfig) -> Refinemen
     discards their children, tiling_prepass.rs:259-263; emitting parents
     keeps coverage complete).
 
-    Structure (TPU-native): levels 0..Ld run DENSELY — every tile of every
+    Structure: levels 0..Ld run DENSELY — every tile of every
     level is evaluated as a (side, 2^k, 2^k) grid, reachability cascades
     by plain 2x-upsampling of parent masks, and ONE stable sort compacts
     all emitted tiles (no per-level sorts, no dynamic slices). Levels
@@ -116,10 +115,9 @@ def refine_tiles(uniforms: FrameUniforms, cfg: StaticTerrainConfig) -> Refinemen
     # constants; concatenating every level into one flat column lets the
     # expensive predicates (frustum test + subdivision distance) run as a
     # SINGLE elementwise batch over all ~budget lanes instead of Ld+1
-    # separate small-op chains. Measured on the 8k^2 bench frame this is
-    # the difference between op-count-bound (~233 us refine) and
-    # lane-bound (the predicate math itself is trivial VPU work); the
-    # emitted tile SET is unchanged — only the evaluation order moved.
+    # separate small-op chains (op-count-bound -> lane-bound; the
+    # predicate math itself is trivial elementwise work); the emitted
+    # tile SET is unchanged — only the evaluation order moved.
     offs = [0]
     np_side, np_lod, np_x, np_y = [], [], [], []
     for k in range(Ld + 1):
@@ -223,16 +221,14 @@ def refine_tiles(uniforms: FrameUniforms, cfg: StaticTerrainConfig) -> Refinemen
     k0 = Ld + 1
     L = 5 * Q  # merged batch: Q parents + 4Q speculative children
 
-    # The spill loop is LAUNCH-bound, not lane-bound: each level costs
-    # ~19 us on v5e in ~4 serial kernel launches (predicate fusion,
-    # distance fusion, sort, glue) regardless of whether Q is 256 or
-    # 4096 lanes. So each iteration processes TWO levels: the Q queued
-    # parents at level k AND all 4Q of their speculative children at
-    # k+1, in ONE predicate batch and ONE stable sort over 5Q lanes
-    # (children of non-dividing parents die by mask). Same launches,
-    # double the levels — measured refine_tiles 189 -> 164 us on v5e
-    # (the 5Q-lane iteration is a bit heavier than the Q-lane one, so
-    # the halved iteration count nets ~-25 us). The emitted tile
+    # The spill loop is LAUNCH-bound, not lane-bound: each level costs a
+    # few serial kernel launches (predicate fusion, distance fusion,
+    # sort, glue) regardless of whether Q is 256 or 4096 lanes. So each
+    # iteration processes TWO levels: the Q queued parents at level k
+    # AND all 4Q of their speculative children at k+1, in ONE predicate
+    # batch and ONE stable sort over 5Q lanes (children of non-dividing
+    # parents die by mask). Same launches, double the levels. The emitted
+    # tile
     # sequence is IDENTICAL to the one-level loop (same predicates, same
     # level-major stable order); only overflow accounting shifts:
     # children are never dropped before evaluation (4Q lanes always

@@ -1,8 +1,9 @@
 """Atlas texture sampling as explicit gathers — attachments.wgsl twin.
 
 The reference samples array textures with a filtering sampler (bilinear,
-anisotropy 16, clamp-to-edge; terrain_bind_group.rs:118-127). TPUs have no
-texture units, so filtering is explicit gathers from the attachment slabs:
+anisotropy 16, clamp-to-edge; terrain_bind_group.rs:118-127). JAX reaches
+no texture units, so filtering is explicit gathers from the attachment
+slabs:
 
 * slab layout: one ``(atlas_size, H>>m, W>>m, C)`` array per attachment per
   mip level, stored in the attachment's native integer dtype (uint8/uint16)
@@ -284,8 +285,7 @@ def query_heights(height_slab, uniforms: FrameUniforms, cfg: StaticTerrainConfig
     distance, tile-tree lookup at the blend lod, bilinear mip-0 sample,
     lerp toward the coarser lod.
 
-    Gather-based (one lane per query): fine for N up to ~1e4 per call on
-    TPU (per-lane gathers are ~12.5 ns/element); batch larger workloads.
+    Gather-based (one lane per query); batch large workloads.
     Returns (N,) f32 heights (world units).
     """
     h = query_attachment(

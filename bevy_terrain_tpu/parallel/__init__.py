@@ -1,9 +1,9 @@
-"""Multi-chip parallelism over jax.sharding Mesh + shard_map.
+"""Multi-device parallelism over jax.sharding Mesh + shard_map.
 
 The reference is single-process/single-GPU (SURVEY.md section 2.2); its only
 "multi" dimension is N views sharing one TileAtlas via request counting
-(terrain_view.rs:6-7). The TPU build makes that dimension — and the tile
-dimension inside a view — shardable over an ICI mesh:
+(terrain_view.rs:6-7). This build makes that dimension — and the atlas —
+shardable over a device mesh:
 
 * :mod:`multi_view` — data-parallel views: each device owns a subset of the
   per-view uniforms and produces that view's tile list + mesh against a

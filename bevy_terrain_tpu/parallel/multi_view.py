@@ -5,8 +5,8 @@ shared atlas: the reference runs them serially on one GPU
 (tiling_prepass.rs:228 per (terrain, view)); here the views axis shards
 across devices with ``shard_map`` — the atlas slab and static config are
 replicated, per-view uniforms and outputs are sharded. Collectives only
-enter through the (optional) sharded-atlas path, so the step scales along
-ICI without cross-device traffic.
+enter through the (optional) sharded-atlas path, so the replicated step scales
+with no cross-device traffic.
 """
 
 from __future__ import annotations
@@ -127,13 +127,13 @@ class MultiViewTerrain:
     each view on its device. The atlas block array is either replicated
     (default — every device holds the whole store) or sharded over the
     same axis (``shard_atlas=True``): each device owns N/n consecutive
-    slot-major blocks and per-view patch fetches reconstruct via one
-    ``psum`` over ICI (parallel/sharded_atlas.py rationale).
+    slot-major blocks and per-view patch fetches are reconstructed by one
+    all-gather + reduce-scatter (parallel/sharded_atlas.py rationale).
     """
 
     def __init__(self, config, view_ids, devices=None, view_config=None,
                  queue_capacity: int = 8192, shard_atlas: bool = False,
-                 interpret: bool = False, **static_overrides):
+                 **static_overrides):
         import jax
 
         from bevy_terrain_tpu.config import TerrainViewConfig
@@ -157,19 +157,6 @@ class MultiViewTerrain:
         self.mesh = Mesh(np.asarray(devices), ("views",))
         self.shard_atlas = shard_atlas
         model = config.model
-        # the fused Pallas mesh kernel is grid-local, so under shard_map
-        # every device simply runs its own instance over its view's tiles —
-        # same per-view device time as the single-view path. It needs the
-        # whole block store locally (replicated atlas) and the grid-16
-        # specialization; the sharded-atlas mode keeps the XLA fetch path
-        # (its psum fetch_fn is the collective). CPU meshes (tests,
-        # dryrun_multichip) use the XLA path too.
-        if "pallas_sampling" not in static_overrides:
-            static_overrides["pallas_sampling"] = (
-                jax.default_backend() == "tpu"
-                and not shard_atlas
-                and self.view_config.grid_size == 16
-            )
         self.cfg = StaticTerrainConfig(
             spherical=model.is_spherical,
             side_count=model.side_count,
@@ -184,9 +171,6 @@ class MultiViewTerrain:
             high_precision=model.is_spherical,
             **static_overrides,
         )
-        # tests only: run the fused kernel under the Pallas interpreter so
-        # the shard_map plumbing is checkable on the virtual CPU mesh
-        self._interpret = interpret
         self._blocks = None
         self._step = None
 
@@ -222,7 +206,6 @@ class MultiViewTerrain:
         n = len(self.view_ids)
         per_device = (n_blocks + n - 1) // n if self.shard_atlas else n_blocks
         shard_atlas = self.shard_atlas
-        interpret = self._interpret
 
         def fetch_sharded(blocks_local, ids):
             # ids (F, 1) global block indices OF THIS DEVICE'S VIEW. The
@@ -230,14 +213,13 @@ class MultiViewTerrain:
             # all_gather over the axis, every device serves every view's
             # requests from its shard, and ONE psum_scatter both reduces
             # (each block has exactly one owner, so the sum reconstructs)
-            # and routes chunk i — view i's patches — to device i. vs the
-            # r03 full psum: half the ICI bytes (reduce-scatter vs
-            # all-reduce) and no (n, F, ...) full reduction materialized
-            # on any device. The ICI volume is still O(n_views * F *
-            # patch) per frame (dryrun_multichip prints the audited
+            # and routes chunk i — view i's patches — to device i: half
+            # the bytes of a full psum, and no (n, F, ...) full reduction
+            # materialized on any device. The volume is still O(n_views *
+            # F * patch) per frame (dryrun_multichip prints the audited
             # number); a capacity-factor all_to_all exchange (route only
-            # owned requests, MoE-dispatch style) is the documented next
-            # step if production meshes make this the bottleneck.
+            # owned requests) is the next step if a deployment makes
+            # this the bottleneck.
             rank = jax.lax.axis_index("views")
             ids_all = jax.lax.all_gather(ids[:, 0], "views")  # (n, F)
             local = ids_all - rank * per_device
@@ -259,20 +241,11 @@ class MultiViewTerrain:
                 blobs[0], cfg.side_count, cfg.lod_count, cfg.tree_size
             )
             tiles = refinement.refine_tiles(u, cfg)
-            if cfg.pallas_sampling:
-                # per-device fused Pallas kernel — the single-view fast
-                # path, one instance per mesh slot (VERDICT r2 item 3)
-                raw, tiles = meshgen.generate_mesh_fused(
-                    tiles, blocks, u, cfg, plan, max_value,
-                    interpret=interpret,
-                )
-                mesh_out = meshgen.fused_to_grid(raw, tiles, cfg, u)
-            else:
-                mesh_out, tiles = meshgen.generate_mesh_grid(
-                    tiles, blocks, u, cfg, plan, max_value,
-                    fetch_fn=fetch_sharded if shard_atlas else None,
-                    n_blocks=n_blocks,
-                )
+            mesh_out, tiles = meshgen.generate_mesh_grid(
+                tiles, blocks, u, cfg, plan, max_value,
+                fetch_fn=fetch_sharded if shard_atlas else None,
+                n_blocks=n_blocks,
+            )
             add = lambda x: jnp.asarray(x)[None]
             return {
                 "tiles": jax.tree.map(add, tiles),

@@ -1,9 +1,10 @@
 """Tensor-parallel tile atlas: block storage sharded over a device mesh.
 
-A single v5e chip holds ~16 GB of HBM; a planetary-scale atlas (tens of
-thousands of resident 512^2 multi-attachment tiles) can exceed it. This
-module shards the unified block array over the mesh's ``atlas`` axis and
-serves per-tile patch fetches with one ``psum`` over ICI:
+A planetary-scale atlas (tens of thousands of resident 512^2
+multi-attachment tiles, each ~340 KB of block quads per 16-bit channel)
+can outgrow one device's memory. This module shards the unified block
+array over the mesh's ``atlas`` axis and serves per-tile patch fetches
+with one ``psum`` over the interconnect:
 
 * every device stores ``N/n`` consecutive blocks (slot-major layout keeps a
   tile's blocks on one device),

@@ -75,7 +75,7 @@ class ShadeContext:
     # (fragment.wgsl's sample_attachmentN / planar.wgsl sample_albedo):
     # {attachment_index: (F, G+1, G+1, C) f32 in [0, 1]}. Populated by the
     # frame step when set_shading(..., sample_attachments=(i, ...)) names
-    # them; the fused attach_sample_fused kernel does the fetch on TPU.
+    # them.
     attachment_samples: Optional[dict] = None
 
 
@@ -284,11 +284,6 @@ class StandardMaterial:
     emissive: tuple = (0.0, 0.0, 0.0)
     lights: tuple = (DirectionalLight(),)
     ambient: tuple = (0.05, 0.05, 0.05)
-    # Opaque terrains (the common case — the reference's own examples
-    # never read albedo alpha) can skip the alpha channel's unpack +
-    # resample in the fused kernel: colors come back RGB with alpha
-    # pinned to 1. Saves ~1/4 of the in-kernel albedo cost.
-    opaque_base_color: bool = False
 
     def __call__(self, ctx: ShadeContext):
         return (self.base_color or default_color)(ctx)
@@ -414,40 +409,6 @@ def pbr_lighting(
     return jnp.concatenate([out, alpha], axis=-1)
 
 
-def kernel_shade_spec(material: "StandardMaterial", alb_max: float):
-    """Static spec for the IN-KERNEL fragment stage (pallas_kernels.
-    _kernel_pbr_shade): the full planar StandardMaterial + packed-albedo
-    fast path evaluated inside the fused mesh kernel. Returns None when
-    the material needs the staged path (per-light shadow hooks — the
-    kernel bakes lights as constants and has no hook surface)."""
-    if not isinstance(material, StandardMaterial):
-        return None
-    lights = []
-    for l in material.lights:
-        if getattr(l, "shadow", None) is not None:
-            return None
-        if isinstance(l, SpotLight):
-            lights.append(("spot", tuple(l.position), tuple(l.direction),
-                           tuple(l.color), float(l.intensity),
-                           float(l.range), float(l.inner_angle),
-                           float(l.outer_angle)))
-        elif isinstance(l, PointLight):
-            lights.append(("point", tuple(l.position), tuple(l.color),
-                           float(l.intensity), float(l.range)))
-        else:
-            lights.append(("dir", tuple(l.direction), tuple(l.color),
-                           float(l.illuminance)))
-    return (
-        float(material.perceptual_roughness),
-        float(material.metallic),
-        float(material.reflectance),
-        tuple(float(e) for e in material.emissive),
-        tuple(float(a) for a in material.ambient),
-        tuple(lights),
-        float(alb_max),
-    )
-
-
 # the planar example's gradient2.png equivalent: a deep-water ->
 # shallows -> grass -> rock -> snow ramp (an original colormap; the
 # reference ships a PNG asset we don't copy)
@@ -497,9 +458,8 @@ def gradient_material(gradient=None, exponent: float = 0.9):
 
 class _AlbedoMaterial:
     """Callable base-color source reading a sampled attachment (see
-    :func:`albedo_material`). Carries ``attachment_index`` so the frame
-    step can recognize the packed-albedo fast path and fuse the whole
-    material stage into the mesh kernel."""
+    :func:`albedo_material`). Carries ``attachment_index`` so the
+    rasterizer can texture the same attachment per pixel."""
 
     def __init__(self, attachment_index: int):
         self.attachment_index = attachment_index
@@ -532,9 +492,7 @@ def albedo_material(attachment_index: int = 1):
 
     Requires ``Terrain.set_shading(material=albedo_material(),
     sample_attachments=(attachment_index,))`` so the frame step samples
-    the attachment in-jit (the fused attach_sample_fused path on TPU;
-    with a StandardMaterial wrapper the WHOLE material stage fuses into
-    the mesh kernel — see render/pipeline.py's fused_shade path).
+    the attachment in-jit.
     """
     return _AlbedoMaterial(attachment_index)
 

@@ -1,4 +1,4 @@
-"""TPU-native tiled rasterizer: terrain frame products -> framebuffer.
+"""Tiled software rasterizer in JAX: terrain frame products -> framebuffer.
 
 The reference renders per PIXEL: bevy's render graph rasterizes the
 terrain mesh and fragment.wgsl:35-113 runs per fragment (per-pixel
@@ -8,8 +8,8 @@ products as vertex/attribute tensors (SURVEY's buffers-not-rasterization
 choice); this module closes the per-pixel half when an actual image is
 wanted — captures, goldens, debug stills, offline tooling.
 
-There is no raster hardware on a TPU, so the design re-expresses
-rasterization as the things a TPU is good at:
+JAX exposes no raster hardware, so the design re-expresses rasterization
+as dense array work:
 
 * **Hierarchical binning by sort compaction** — bins form a mip
   pyramid (level-0 bins of ``bin_px``, each coarser level 2x). A
@@ -22,13 +22,14 @@ rasterization as the things a TPU is good at:
   caps are static capacities whose clamping is *counted*, never
   silent (the same idiom as ops/refinement.py). No atomics, no
   dynamic shapes.
-* **Edge functions on the MXU** — an edge function is affine in screen
+* **Edge functions as one matmul** — an edge function is affine in screen
   space, so 3 edges + the (screen-affine) NDC depth of a candidate
   triangle are a ``(4, 3)`` coefficient matrix, and testing a whole
   bin's pixel block against a chunk of candidates is ONE dot:
   ``(px, 3) @ (3, chunk*4)``. The depth race is a running max carried
   through a ``lax.scan`` (reverse-Z, matching math/frustum.perspective).
-* **Perspective-correct resolve as gathers + VPU math** — the winning
+  The dot runs at HIGHEST precision: the fill rule tests ``E == 0``.
+* **Perspective-correct resolve as gathers + elementwise math** — the winning
   triangle id per pixel gathers its 3 vertices once; barycentrics are
   recomputed per pixel and perspective-corrected with the vertices'
   1/w (the hardware attribute interpolator's formula).
@@ -111,8 +112,13 @@ def _project(positions, view_proj, width, height):
     centers at +0.5, y down.
     """
     vp = jnp.asarray(view_proj, jnp.float32)
-    # column-vector convention (frustum.view_projection): clip = VP @ [p;1]
-    clip = jnp.einsum("ij,...j->...i", vp[:, :3], positions) + vp[:, 3]
+    # column-vector convention (frustum.view_projection): clip = VP @ [p;1].
+    # HIGHEST: a default-precision f32 dot may run in TF32 on the GPU; the
+    # projected vertices feed the exact-f32 edge functions and fill rule
+    clip = jnp.einsum(
+        "ij,...j->...i", vp[:, :3], positions,
+        precision=jax.lax.Precision.HIGHEST,
+    ) + vp[:, 3]
     w = clip[..., 3]
     safe_w = jnp.where(jnp.abs(w) < 1e-12, 1e-12, w)
     ndc = clip[..., :3] / safe_w[..., None]
@@ -294,7 +300,7 @@ def rasterize_grid(
         (T, 4),
     )
     # Pack [bin key | depth priority | tri id] into TWO uint32 sort keys
-    # (int64 is emulated on TPU, and x64 is off by default) instead of a
+    # (x64 is off by default in JAX) instead of a
     # 3-operand 2-key stable sort: the low tri-id bits make the total
     # order strict, so the result is deterministic without a stability
     # flag, and the comparator moves 8 bytes/element instead of 12.
@@ -330,7 +336,7 @@ def rasterize_grid(
     # rank within (level, bin): i - first index of this key's segment.
     # A cummax over segment starts is O(n) elementwise work; searchsorted
     # here would binary-search the whole 4T array per element (log n
-    # dependent gathers each — measured seconds at multi-million T).
+    # dependent gathers each).
     idx = jnp.arange(s_key.shape[0], dtype=jnp.int32)
     seg_start = jnp.concatenate(
         [jnp.ones((1,), bool), s_key[1:] != s_key[:-1]]
@@ -421,10 +427,14 @@ def rasterize_grid(
             ],
             axis=-2,
         ).reshape(NB, chunk * 4, 3)
+        # HIGHEST: the top-left fill rule below tests E == 0 exactly; a
+        # TF32 pass (the GPU's default for f32 dots) would round E and let
+        # shared edges double-draw or crack
         vals = jax.lax.dot_general(
             pix,
             coefs,
             ((((2,), (2,)), ((0,), (0,)))),
+            precision=jax.lax.Precision.HIGHEST,
             preferred_element_type=jnp.float32,
         ).reshape(NB, bin_px * bin_px, chunk, 4)
 

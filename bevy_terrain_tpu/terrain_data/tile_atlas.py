@@ -1,7 +1,8 @@
 """The TileAtlas: sparse streaming store of terrain attachment tiles.
 
 Behavioral twin of the reference's ``TileAtlas``
-(/root/reference/src/terrain_data/tile_atlas.rs) re-designed for TPU:
+(the reference's src/terrain_data/tile_atlas.rs) re-designed for a JAX
+device:
 
 * **Residency state machine (host)** — request-counted tiles, FIFO of
   unused slots as LRU cache, bounded load/save slot budgets, best-loaded-
@@ -110,37 +111,21 @@ class AtlasAttachment:
             config.texture_size, config.mip_level_count, config.border_size
         )
         if self.patch_plan.usable:
-            # int32 storage as row-interleaved block quads (32, 128) —
-            # dense i32-native tiles, one 16 KB DMA per tile patch (see
-            # patch_sampling.quad_rows; the fetch is DMA-count bound).
-            # u16 storage costs a whole-array layout copy per frame
-            # (measured 2.15 ms). The explicit row-major Format avoids a
-            # per-frame relayout (see pallas_kernels.block_format).
+            # int32 storage as row-interleaved block quads (32, 128): one
+            # 16 KB gathered row per tile patch (see patch_sampling.quad_rows)
             shape = (atlas_size * self.patch_plan.total_blocks_per_slot, 32, 128)
             # Multi-channel formats store ONE packed int32 block array
             # (channel c in bits [c*B, (c+1)*B), B = 8 or 16) — a texel is
             # one word, exactly as in the reference's texture formats
-            # (src/terrain_data/mod.rs:38-84). The fused sampler fetches
-            # the quad once and unpacks per channel in VMEM; planar
-            # storage would pay the DMA-count-bound fetch per channel
-            # (~600 us/pass at 4096 tiles, docs/perf_notes.md) and 4x the
-            # HBM for Rgba8.
+            # (src/terrain_data/mod.rs:38-84). The sampler gathers the quad
+            # once and unpacks per channel; planar storage would gather
+            # once per channel and take 4x the device memory for Rgba8.
             self.block_packed = fmt.channels > 1
             self.packed_bits = 8 * fmt.dtype.itemsize if self.block_packed else 0
             n_arrays = 1 if self.block_packed else fmt.channels
-            if jax.default_backend() == "tpu":
-                from bevy_terrain_tpu.ops.pallas_kernels import block_format
-
-                self.block_format = block_format()
-                self.block_arrays: list[jax.Array] = [
-                    jax.device_put(jnp.zeros(shape, jnp.int32), self.block_format)
-                    for _ in range(n_arrays)
-                ]
-            else:
-                self.block_format = None
-                self.block_arrays = [
-                    jnp.zeros(shape, jnp.int32) for _ in range(n_arrays)
-                ]
+            self.block_arrays: list[jax.Array] = [
+                jnp.zeros(shape, jnp.int32) for _ in range(n_arrays)
+            ]
         else:
             self.block_arrays = None
             self.block_packed = False
@@ -213,7 +198,7 @@ class AtlasAttachment:
     def flush_uploads(self) -> int:
         """Batch-scatter staged tiles into the device slabs.
 
-        The TPU-native replacement for per-tile ``write_texture`` uploads
+        The replacement for per-tile ``write_texture`` uploads
         (gpu_tile_atlas.rs:309-336): one donated scatter per mip level per
         frame, so the slab buffer is updated in place.
         """
@@ -226,11 +211,7 @@ class AtlasAttachment:
         if self.block_arrays is not None:
             per_slot = self.patch_plan.total_blocks_per_slot
             block_idx = indices[:, None] * per_slot + np.arange(per_slot)[None, :]
-            scatter = (
-                _scatter_blocks_formatted(self.block_format)
-                if self.block_format is not None
-                else _scatter_tiles
-            )
+            scatter = _scatter_tiles
             if self.block_packed:
                 block_vals = np.stack([
                     blocks_from_tile_packed(mips, self.patch_plan)
@@ -281,21 +262,6 @@ class AtlasAttachment:
 @jax.jit
 def _scatter_tiles(slab, indices, values):
     return slab.at[indices].set(values)
-
-
-_SCATTER_CACHE: dict = {}
-
-
-def _scatter_blocks_formatted(fmt):
-    """Scatter jit whose slab input/output keep the pallas block Format."""
-    key = str(fmt)
-    if key not in _SCATTER_CACHE:
-        _SCATTER_CACHE[key] = jax.jit(
-            lambda slab, idx, vals: slab.at[idx].set(vals),
-            in_shardings=(fmt, None, None),
-            out_shardings=fmt,
-        )
-    return _SCATTER_CACHE[key]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -72,10 +72,10 @@ def main() -> None:
         src_dir = Path(args.assets) / "source"
         src_dir.mkdir(parents=True, exist_ok=True)
         array_to_source(height_field(uu, vv), src_dir / "pa_height.png")
-        from PIL import Image
+        from bevy_terrain_tpu.formats.tiff import write_png
 
         rgba = (albedo_field(uu, vv) * 255).astype(np.uint8)
-        Image.fromarray(rgba, "RGBA").save(src_dir / "pa_albedo.png")
+        write_png(src_dir / "pa_albedo.png", rgba)
 
         atlas = TileAtlas(config)
         pre = Preprocessor(atlas).clear_attachment(0)
@@ -94,8 +94,8 @@ def main() -> None:
 
     # the reference example's custom TerrainMaterial (examples/planar.rs +
     # assets/shaders/planar.wgsl): ALBEDO branch = color straight from the
-    # albedo attachment, fetched INSIDE the frame step (the fused
-    # attach_sample_fused path on TPU), lit by the PBR stage
+    # albedo attachment, fetched INSIDE the frame step, lit by the PBR
+    # stage
     from bevy_terrain_tpu import StandardMaterial, albedo_material, gradient_material
 
     terrain.set_shading(

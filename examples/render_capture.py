@@ -1,9 +1,9 @@
-"""Render terrain views to PNG images with the TPU-native rasterizer.
+"""Render terrain views to PNG images with the JAX rasterizer.
 
 The reference's examples open a bevy window and rasterize on the GPU;
 this is the same visual result as files — per-pixel PBR shading plus the
 debug views (debug.wgsl's palette) — produced entirely by
-``bevy_terrain_tpu.render.raster`` (binning + MXU edge functions +
+``bevy_terrain_tpu.render.raster`` (binning + matmul edge functions +
 perspective-correct resolve).
 
     python examples/render_capture.py [--assets DIR] [--out DIR] [--size N]
@@ -38,10 +38,10 @@ def terrain_height(u, v):
 
 
 def save_png(img, path):
-    from PIL import Image
+    from bevy_terrain_tpu.formats.tiff import write_png
 
     arr = np.clip(np.asarray(img) * 255.0, 0, 255).astype(np.uint8)
-    Image.fromarray(arr, "RGBA").save(path)
+    write_png(path, arr)
     print(f"wrote {path}")
 
 
@@ -64,10 +64,8 @@ def main() -> None:
     )
     manifest = Path(args.assets) / "terrains/capture" / "config.tc"
     if not manifest.exists():
-        from PIL import Image
-
         from bevy_terrain_tpu import PreprocessDataset, Preprocessor
-        from bevy_terrain_tpu.formats.tiff import array_to_source
+        from bevy_terrain_tpu.formats.tiff import array_to_source, write_png
         from bevy_terrain_tpu.terrain_data import TileAtlas
 
         n = 1024
@@ -87,9 +85,7 @@ def main() -> None:
         src = Path(args.assets) / "source"
         src.mkdir(parents=True, exist_ok=True)
         array_to_source(h, src / "capture_height.png")
-        Image.fromarray((rgba * 255).astype(np.uint8), "RGBA").save(
-            src / "capture_albedo.png"
-        )
+        write_png(src / "capture_albedo.png", (rgba * 255).astype(np.uint8))
         pre = Preprocessor(TileAtlas(config)).clear_attachment(0)
         pre.preprocess_tile(PreprocessDataset(
             attachment_index=0, path=str(src / "capture_height.png"),

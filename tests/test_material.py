@@ -597,7 +597,7 @@ class TestWireframe:
 
 class TestDeviceHeightQueriesGridPath:
     def test_blob_uniform_branch(self, shaded_terrain):
-        """query_heights must also work on the grid/fused path, where the
+        """query_heights must also work on the grid path, where the
         view's last uniforms are the packed blob (unpacked in-jit)."""
         t, view, _ = shaded_terrain
         assert t.use_grid_mesh
@@ -621,7 +621,7 @@ class TestDeviceHeightQueriesGridPath:
 
 class TestAdaptiveCapacityGridPath:
     def test_ladder_on_fused_path(self, shaded_terrain):
-        """The capacity ladder must also respecialize the grid/fused step
+        """The capacity ladder must also respecialize the grid step
         (and attachment sampling must follow the frame's adapted config)."""
         t, _, _ = shaded_terrain
         assert t.use_grid_mesh

@@ -268,7 +268,7 @@ class TestSeamContinuity:
 class TestQuadRows:
     def test_layout_and_adjacency(self):
         """quad_rows entry i holds blocks (i, i+1, i+g, i+g+1) as lane
-        groups Q[r, 32q+c] (the one-DMA patch layout)."""
+        groups Q[r, 32q+c] (the one-gather patch layout)."""
         from bevy_terrain_tpu.ops.patch_sampling import quad_rows
 
         rng = np.random.default_rng(3)
@@ -444,7 +444,7 @@ class TestTileTreeLodMode:
 
 
 class TestVertexDensityMipBound:
-    """The aniso question, measured (VERDICT item 10).
+    """The aniso question, measured.
 
     The reference samples attachments with anisotropy-16 textureSampleGrad
     in the FRAGMENT stage (terrain_bind_group.rs:124, attachments.wgsl:
@@ -520,7 +520,7 @@ class TestVertexDensityMipBound:
 
 
 class TestGradTaps:
-    """Anisotropic multi-tap color sampling (VERDICT r2 item 9): the
+    """Anisotropic multi-tap color sampling: the
     SAMPLE_GRAD equivalent for albedo under grazing angles (reference
     attachments.wgsl:12-24, anisotropy 16). Heights keep the measured
     vertex-density-mip answer (TestVertexDensityMipBound); COLOR adds the

@@ -233,7 +233,7 @@ class TestShardedAtlas:
 
 class TestEllipsoidDepth:
     def test_ellipsoid_streams_to_depth_with_taylor(self, tmp_path):
-        """VERDICT item 8: the ellipsoidal branch end-to-end — stream a
+        """The ellipsoidal branch end-to-end — stream a
         WGS84-scale ellipsoid on an approach to 3 km altitude, geometry
         refining far beyond the data lods, Taylor relative path active —
         and validate the surface against the f64 model (the spherical

@@ -1,4 +1,4 @@
-"""TPU-native rasterizer tests (render/raster.py).
+"""Rasterizer tests (render/raster.py).
 
 Oracle strategy: a scalar numpy scanline rasterizer implementing the
 IDENTICAL contract (pixel centers at +0.5, sign-normalized edge

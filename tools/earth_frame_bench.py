@@ -1,13 +1,14 @@
-"""Earth flagship frame benchmark — the tracked spherical number.
+"""Earth flagship frame benchmark — the spherical counterpart of bench.py.
 
-Streams a cube-sphere Earth (radius 6.371e6 m, geometry lods to 13 over
-3 data lods, Taylor high-precision active) at 60 km altitude under a
-60-degree frustum camera and reports the settled frame's profiler-traced
-device time — the spherical counterpart of bench.py's planar headline
-(r02 state: ~1.51 ms vs 0.97 ms planar; the surplus is the cube-sphere
-geometry + hp chains, see docs/perf_notes.md).
+Streams the cube-sphere Earth of chip_smoke.py's earth phase (radius
+6.371e6 m, geometry lods to 13 over 3 data lods, Taylor high-precision
+path) at 60 km altitude under a 60-degree frustum camera and reports the
+settled frame's device time from a profiler trace. ``--ops`` also prints
+the frame's largest device kernels.
 
-Prints one JSON object. --cpu pins the CPU backend (correctness only).
+Prints one JSON object. Needs a GPU.
+
+    python tools/earth_frame_bench.py [--altitude-km 60] [--ops]
 """
 
 from __future__ import annotations
@@ -26,125 +27,67 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--altitude-km", type=float, default=60.0)
     ap.add_argument("--adaptive", action="store_true")
     ap.add_argument("--headroom", type=float, default=1.3,
                     help="adaptive-ladder headroom over the last tile count "
                          "(static camera: tight is safe; flythroughs want 2.0)")
-    ap.add_argument("--queue", type=int, default=2048,
-                    help="refinement spill-queue capacity (deep lods beyond "
-                         "the dense cascade); sized for the 60 km frame")
-    ap.add_argument("--capacity", type=int, default=2048,
-                    help="flat tile capacity. 2048 covers the 1512-tile "
-                         "60 km frame with 1.35x headroom — the same "
-                         "next-pow2 sizing rule as the planar headline "
-                         "(4096 for 2582 tiles); overflow is asserted 0")
+    ap.add_argument("--ops", action="store_true",
+                    help="print the settled frame's top device kernels")
     args = ap.parse_args()
 
-    import jax
+    from bevy_terrain_tpu.utils.device import card_info, require_gpu
 
-    if args.cpu:
-        jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
-    import bevy_terrain_tpu as bt
-    from bevy_terrain_tpu.formats.tiff import array_to_source
-    from bevy_terrain_tpu.math.coordinate import local_position_from_side_uv
+    require_gpu()
+    import chip_smoke
     from bevy_terrain_tpu.math.frustum import view_projection
-    from bevy_terrain_tpu.models import height_attachment
-    from bevy_terrain_tpu.terrain_data import TileAtlas
-
-    R = 6_371_000.0
-    MAXH = 9_000.0
-    LODS = 13
-    DATA_LODS = 3
-
-    def planet(p):
-        return np.clip(
-            0.5 + 0.3 * np.sin(3 * p[..., 0]) * np.cos(2 * p[..., 2]), 0.05, 1.0
-        )
-
-    tmp = Path(tempfile.mkdtemp(prefix="earth_bench_"))
-    n = 256
-    uv = (np.arange(n) + 0.5) / n
-    uu, vv = np.meshgrid(uv, uv, indexing="xy")
-    grid_uv = np.stack([uu, vv], axis=-1)
-    paths = []
-    for side in range(6):
-        p = local_position_from_side_uv(side, grid_uv)
-        path = tmp / f"f{side}.png"
-        array_to_source(planet(p), path)
-        paths.append(str(path))
-
-    config = bt.TerrainConfig(
-        lod_count=LODS,
-        model=bt.TerrainModel.sphere(np.zeros(3), R, 0.0, MAXH),
-        atlas_size=512,
-        path="earth",
-        assets_root=str(tmp / "assets"),
-        attachments=(height_attachment(texture_size=512, mips=4),),
+    from bevy_terrain_tpu.utils.compile_cache import enable_compile_cache
+    from bevy_terrain_tpu.utils.timing import (
+        busy_ns, kernel_totals_ms, trace_device_events,
     )
-    atlas = TileAtlas(config)
-    bt.Preprocessor(atlas).clear_attachment(0).preprocess_spherical(
-        bt.SphericalDataset(attachment_index=0, paths=paths,
-                            lod_range=range(0, DATA_LODS))
-    ).run(verbose=False)
 
-    terrain = bt.Terrain(config)
-    terrain.add_view(
-        "cam", bt.TerrainViewConfig(tile_capacity=args.capacity),
-        queue_capacity=args.queue, culling=True,
+    enable_compile_cache()
+    s = chip_smoke.FULL
+    terrain, radius = chip_smoke.earth_terrain(
+        Path(tempfile.mkdtemp(prefix="earth_bench_")), s, seed=0
     )
     if args.adaptive:
         terrain.enable_adaptive_capacity(
             "cam", ladder=[1024, 2048, 4096], headroom=args.headroom
         )
-
-    view = np.array([0.0, 0.0, R + args.altitude_km * 1e3])
+    view = np.array([0.0, 0.0, radius + args.altitude_km * 1e3])
     vp = view_projection(view, view * 0.5, np.pi / 3, 16 / 9)
+
+    def update():
+        return terrain.update({"cam": view}, {"cam": vp})["cam"]
+
     for i in range(200):
-        out = terrain.update({"cam": view}, {"cam": vp})
-        if i > 3 and not terrain.atlas.state.to_load and not any(
-            a.loading for a in terrain.atlas.attachments
-        ):
+        out = update()
+        if i > 3 and chip_smoke.resident(terrain.atlas):
             break
         time.sleep(0.01)
-    out = terrain.update({"cam": view}, {"cam": vp})["cam"]
-    tiles = int(np.asarray(out.tiles.tile_count))
-    overflow = int(np.asarray(out.overflow))
-
-    if jax.default_backend() == "tpu":
-        from bevy_terrain_tpu.utils.timing import device_time_ms
-
-        ms = device_time_ms(lambda: terrain.update({"cam": view}, {"cam": vp}),
-                            label="earth")
-    else:  # CPU: profiler traces carry no jit events; min-of-N wall
-        samples = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            jax.block_until_ready(
-                terrain.update({"cam": view}, {"cam": vp})["cam"].mesh.positions
-            )
-            samples.append((time.perf_counter() - t0) * 1e3)
-        ms = min(samples)
+    out = update()
+    runs = 5
+    events = trace_device_events(update, runs=runs)
     stats = {
         "benchmark": "earth_frame",
-        "backend": jax.default_backend(),
+        "card": card_info(),
         "altitude_km": args.altitude_km,
-        "lod_count": LODS,
-        "tiles": tiles,
-        "capacity": args.capacity,
-        "overflow": overflow,
-        "device_ms": round(ms, 3),
+        "lod_count": s["earth_lods"],
+        "tiles": out.tile_count,
+        "capacity": s["earth_capacity"],
+        "overflow": out.overflow,
+        "device_ms": busy_ns(events) / runs / 1e6,
     }
     if args.adaptive:
         stats["adaptive_capacity"] = terrain._adaptive["cam"]["capacity"]
     json.dump(stats, sys.stdout)
     print()
-    assert overflow == 0 or args.adaptive
-    assert tiles > 100
+    if args.ops:
+        for name, ms in list(kernel_totals_ms(events).items())[:30]:
+            print(f"{ms / runs:9.4f} ms  {name[:100]}")
+    assert out.overflow == 0 or args.adaptive
+    assert out.tile_count > 100
 
 
 if __name__ == "__main__":

@@ -4,15 +4,16 @@ The swisstopo-style load of the reference: a deep quadtree (geometry lods
 far beyond the data lods), a streaming atlas, and a camera flying from
 high altitude down to near the surface across the terrain — the workload
 that exercises the whole stack at once: per-frame C++ request scan,
-async tile IO, residency, refinement + culling, and the fused mesh
-kernel, under continuous atlas churn (reference big_space
+async tile IO, residency, refinement + culling, and mesh generation,
+under continuous atlas churn (reference big_space
 deep-quadtree scenario; terrain_view.rs:49-63 defaults tree_size=8,
 refinement_count=30, grid_size=16).
 
 Prints one JSON object with streaming + frame statistics. Host timings
 are wall-clock (they ARE host work); device time is profiler-traced on
-the final settled frame (utils/timing.device_time_ms). Runs on whatever
-platform JAX picks — pass --cpu to pin CPU (no TPU compile).
+the final settled frame (utils/timing.device_time_ms, GPU only). Runs on
+whatever platform JAX picks — pass --cpu to pin the CPU (correctness and
+host timings only).
 """
 
 from __future__ import annotations
@@ -41,13 +42,16 @@ def main() -> None:
                          "per rung on first use)")
     ap.add_argument("--device-time", action="store_true",
                     help="also profile the settled frame's device time "
-                         "(first TPU compile of this config is slow)")
+                         "(GPU only)")
     args = ap.parse_args()
 
     import jax
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from bevy_terrain_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import bevy_terrain_tpu as bt
     from bevy_terrain_tpu.models import streaming_flythrough_view

@@ -45,15 +45,44 @@ def node_selection_cases():
     ]
 
 
+def frame_inputs(model, view_config, view_pos, lod_count, queue_capacity):
+    """(StaticTerrainConfig, FrameUniforms) of a refinement-only frame in
+    which every tile-tree slot reports the root tile loaded at slot 0."""
+    from bevy_terrain_tpu.math import TerrainModelApproximation
+    from bevy_terrain_tpu.ops import tile_tree
+    from bevy_terrain_tpu.ops.params import StaticTerrainConfig, make_frame_uniforms
+
+    cfg = StaticTerrainConfig(
+        spherical=model.is_spherical, side_count=model.side_count,
+        lod_count=lod_count, tree_size=view_config.tree_size,
+        grid_size=view_config.grid_size,
+        refinement_count=view_config.refinement_count,
+        tile_capacity=view_config.tile_capacity,
+        origin_lod=view_config.origin_lod, queue_capacity=queue_capacity,
+    )
+    origins, vt_int, vt_frac = tile_tree.compute_view_anchors(
+        model, view_pos, lod_count, view_config.tree_size
+    )
+    approx = TerrainModelApproximation.compute(
+        model, view_pos, view_config.origin_lod,
+        (model.min_height + model.max_height) / 2,
+    )
+    entries = np.zeros(
+        (model.side_count, lod_count, cfg.tree_size, cfg.tree_size, 2), np.int32
+    )
+    return cfg, make_frame_uniforms(
+        model, view_pos, approx, origins, entries, vt_int, vt_frac, view_config
+    )
+
+
 def refine_nodes(model, view, lods):
     import jax
 
     from bevy_terrain_tpu.config import TerrainViewConfig
     from bevy_terrain_tpu.ops import refinement
-    from tests.test_ops import build_frame
 
     vc = TerrainViewConfig(tile_capacity=32768)
-    cfg, uniforms = build_frame(model, vc, view, lods, queue_capacity=32768)
+    cfg, uniforms = frame_inputs(model, vc, view, lods, queue_capacity=32768)
     tiles = jax.jit(refinement.refine_tiles, static_argnames="cfg")(uniforms, cfg)
     n = int(tiles.tile_count)
     assert int(tiles.overflow) == 0
@@ -108,10 +137,9 @@ def mesh_case(tmp_root):
     """Streamed planar frame -> (sorted nodes, strip heights, relative
     positions).
 
-    blend_per_vertex pins the SAME crossfade math the fused TPU kernel
-    bakes (tests/test_fused_mesh.py), so one committed capture anchors
-    both the staged CPU path (exact) and the live-TPU fused kernel
-    (documented bf16 tolerance, tests/test_goldens.py::TestTpuFusedGoldens).
+    blend_per_vertex pins the reference's per-vertex crossfade. One
+    committed capture anchors both the CPU regeneration (exact) and the
+    live-GPU frame (tests/test_goldens.py::TestGpuLiveGoldens).
     """
     from bevy_terrain_tpu import (
         AttachmentConfig, Terrain, TerrainConfig, TerrainModel, TerrainViewConfig,
@@ -142,9 +170,8 @@ def mesh_case(tmp_root):
 def mesh_spherical_case(tmp_root):
     """Streamed FLAGSHIP spherical frame capture: Earth radius, geometry
     lods to 13 over 3 data lods, Taylor hp path, 60-degree culled camera
-    at 60 km — the tools/earth_frame_bench.py configuration, i.e. the
-    exact surface where the fused kernel's MXU precision choices live
-    (VERDICT r2 item 5).
+    at 60 km — the tools/earth_frame_bench.py configuration, where the
+    f32 precision of the Taylor path is exercised hardest.
 
     Positions are stored relative to the camera (world f32 at 6.4e6 m
     carries ~0.5 m quantization by itself). Geometry tile size sets the
@@ -220,7 +247,7 @@ def backend_nodes() -> None:
 
     Needed because f32 at planetary scale is backend-dependent: on the
     6.4e6 m sphere the view distance survives a large cancellation
-    (|world - view| ~ 3e3 from operands ~6e6), so CPU and TPU land
+    (|world - view| ~ 3e3 from operands ~6e6), so CPU and GPU land
     metres apart (~1e-3 relative) and tiles whose subdivision margin is
     inside that envelope flip. Node selections stay EXACT per backend;
     tests/test_goldens.py loads the backend-suffixed file when present
@@ -247,8 +274,8 @@ def backend_nodes() -> None:
 
 def main() -> None:
     # goldens are platform-pinned: generated AND compared on the CPU
-    # backend (the tests run under conftest's CPU forcing; TPU f32 output
-    # is validated against these separately with tolerances)
+    # backend (the tests run under conftest's CPU forcing; the GPU's f32
+    # output is validated against these separately with tolerances)
     import jax
 
     jax.config.update("jax_platforms", "cpu")

@@ -1,10 +1,11 @@
-"""Full-material frame measurement (VERDICT r2 item 6).
+"""Material frame stages on bench.py's 8k^2 planar scene, on the card.
 
-One jit = refinement -> fused mesh kernel -> 4-channel albedo fetch at the
-morphed vertex uvs (attach_sample_fused per channel) -> PBR shade. The
-target: device frame <= 1.5 ms at capacity 4096 on the bench.py 8k^2
-planar scene (mesh alone is ~971 us; the r02 4-channel sampler measured
-674 us stand-alone, so the headroom is fetch overlap + fused shade).
+One jit per row, each a superset of the previous: the mesh frame
+(refinement -> generate_mesh_grid), + the packed Rgba8 albedo sampled at
+the morphed vertex uvs (one patch gather serves four channels), + PBR
+shading (StandardMaterial over the sampled albedo). A side row times the
+4-tap anisotropic (SAMPLE_GRAD) albedo option. Device times come from
+profiler traces.
 
 Usage: python tools/material_frame_bench.py
 """
@@ -17,275 +18,83 @@ from pathlib import Path
 import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-sys.path.insert(0, str(Path(__file__).resolve().parent))
-
-from multi_view_bench import build_scene  # noqa: E402  (same 8k^2 scene)
 
 
 def main() -> None:
     import jax
 
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        str(Path(__file__).resolve().parent.parent / ".jax_cache"),
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from bevy_terrain_tpu.utils.device import card_info, require_gpu
+
+    require_gpu()
     import jax.numpy as jnp
 
+    import bench
     from bevy_terrain_tpu.ops import meshgen, refinement
-    from bevy_terrain_tpu.ops.pallas_kernels import block_format
-    from bevy_terrain_tpu.ops.patch_sampling import sample_attachment_vertices
-    from bevy_terrain_tpu.render.material import (
-        StandardMaterial, albedo_material, kernel_shade_spec, shade,
+    from bevy_terrain_tpu.ops.patch_sampling import (
+        make_patch_plan, sample_attachment_vertices,
+        sample_attachment_vertices_grad,
     )
+    from bevy_terrain_tpu.render.material import (
+        StandardMaterial, albedo_material, shade,
+    )
+    from bevy_terrain_tpu.utils.compile_cache import enable_compile_cache
     from bevy_terrain_tpu.utils.timing import device_time_ms
 
-    cfg, plan, blocks, u1, _ = build_scene()
-    fmt = block_format()
-    blocks = jax.device_put(blocks, fmt)
-    # 4 albedo channels (Rgba8), same plan. Production stores them PACKED
-    # (one int32 word per texel, TileAtlas block_packed) — one quad DMA
-    # serves all four; the planar 4-array layout is kept for the
-    # comparison row.
+    enable_compile_cache()
+    _, (blocks, u), cfg = bench.build_frame()
+    plan = make_patch_plan(bench.TEXTURE_SIZE, bench.MIPS, bench.BORDER)
     rng = np.random.default_rng(7)
-    albedo_chans = [
-        rng.integers(0, 256, blocks.shape).astype(np.uint32) for _ in range(4)
-    ]
-    albedo_blocks = tuple(
-        jax.device_put(jnp.asarray(c.astype(np.int32)), fmt)
-        for c in albedo_chans
-    )
-    packed_np = albedo_chans[0].copy()
-    for c in range(1, 4):
-        packed_np |= albedo_chans[c] << (8 * c)
-    albedo_packed = jax.device_put(
-        jnp.asarray(packed_np.view(np.int32)), fmt
+    packed = jnp.asarray(
+        rng.integers(0, 2**32, blocks.shape, dtype=np.uint64)
+        .astype(np.uint32).view(np.int32)
     )
     material = StandardMaterial(base_color=albedo_material(1))
 
-    def mesh_only(block_array, u):
+    def mesh_of(block_array, u):
         tiles = refinement.refine_tiles(u, cfg)
-        raw, tiles = meshgen.generate_mesh_fused(
-            tiles, block_array, u, cfg, plan, 65535.0
-        )
-        return tiles.tile_count, raw
+        mesh, tiles = meshgen.generate_mesh_grid(
+            tiles, block_array, u, cfg, plan, 65535.0)
+        return tiles, mesh
 
-    def mesh_grid(block_array, u):
-        tiles = refinement.refine_tiles(u, cfg)
-        raw, tiles = meshgen.generate_mesh_fused(
-            tiles, block_array, u, cfg, plan, 65535.0
-        )
-        mesh = meshgen.fused_to_grid(raw, tiles, cfg, u)
-        return tiles.tile_count, mesh.positions
-
-    def mesh_rgba(block_array, ab, u):
-        tiles = refinement.refine_tiles(u, cfg)
-        raw, tiles = meshgen.generate_mesh_fused(
-            tiles, block_array, u, cfg, plan, 65535.0
-        )
-        mesh = meshgen.fused_to_grid(raw, tiles, cfg, u)
-        rgba = sample_attachment_vertices(
-            list(ab), tiles, mesh.uvs, u, cfg, plan, 255.0
-        )
-        return tiles.tile_count, rgba
-
-    def mesh_rgba_packed(block_array, ap, u):
-        tiles = refinement.refine_tiles(u, cfg)
-        raw, tiles = meshgen.generate_mesh_fused(
-            tiles, block_array, u, cfg, plan, 65535.0
-        )
-        mesh = meshgen.fused_to_grid(raw, tiles, cfg, u)
-        rgba = sample_attachment_vertices(
+    def rgba_of(tiles, mesh, ap, u):
+        return sample_attachment_vertices(
             [ap], tiles, mesh.uvs, u, cfg, plan, 255.0,
-            packed_channels=4, packed_bits=8,
-        )
-        return tiles.tile_count, rgba
+            packed_channels=4, packed_bits=8)
 
-    def mesh_rgba_grad(block_array, ab, u):
-        from bevy_terrain_tpu.ops.patch_sampling import (
-            sample_attachment_vertices_grad,
-        )
+    @jax.jit
+    def mesh_only(b, u):
+        return mesh_of(b, u)
 
-        tiles = refinement.refine_tiles(u, cfg)
-        raw, tiles = meshgen.generate_mesh_fused(
-            tiles, block_array, u, cfg, plan, 65535.0
-        )
-        mesh = meshgen.fused_to_grid(raw, tiles, cfg, u)
-        rgba = sample_attachment_vertices_grad(
-            list(ab), tiles, mesh.uvs, mesh, u, cfg, plan, 255.0, taps=4
-        )
-        return tiles.tile_count, rgba
+    @jax.jit
+    def with_albedo(b, ap, u):
+        tiles, mesh = mesh_of(b, u)
+        return tiles, rgba_of(tiles, mesh, ap, u)
 
-    def full(block_array, ap, u):
-        tiles = refinement.refine_tiles(u, cfg)
-        raw, tiles = meshgen.generate_mesh_fused(
-            tiles, block_array, u, cfg, plan, 65535.0
-        )
-        mesh = meshgen.fused_to_grid(raw, tiles, cfg, u)
-        rgba = sample_attachment_vertices(
-            [ap], tiles, mesh.uvs, u, cfg, plan, 255.0,
-            packed_channels=4, packed_bits=8,
-        )
-        colors = shade(
-            mesh, tiles, u, cfg, material=material, lighting=True,
-            attachment_samples={1: rgba},
-        )
-        return tiles.tile_count, colors
+    @jax.jit
+    def with_grad(b, ap, u):
+        tiles, mesh = mesh_of(b, u)
+        return tiles, sample_attachment_vertices_grad(
+            [ap], tiles, mesh.uvs, mesh, u, cfg, plan, 255.0, taps=4,
+            packed_channels=4, packed_bits=8)
 
-    def merged(block_array, ap, u):
-        # mesh + packed RGBA in ONE kernel (shared DMA schedule, tents,
-        # window weights), then PBR shade
-        tiles = refinement.refine_tiles(u, cfg)
-        raw, tiles = meshgen.generate_mesh_fused(
-            tiles, block_array, u, cfg, plan, 65535.0,
-            albedo_blocks=ap, albedo_channels=4, albedo_bits=8,
-        )
-        mesh = meshgen.fused_to_grid(raw, tiles, cfg, u)
-        rgba = meshgen.fused_albedo_to_grid(raw, cfg, 4, 255.0)
-        return tiles.tile_count, rgba, mesh
+    @jax.jit
+    def full(b, ap, u):
+        tiles, mesh = mesh_of(b, u)
+        return tiles, shade(mesh, tiles, u, cfg, material=material,
+                            lighting=True,
+                            attachment_samples={1: rgba_of(tiles, mesh, ap, u)})
 
-    def merged_full(block_array, ap, u):
-        tiles = refinement.refine_tiles(u, cfg)
-        raw, tiles = meshgen.generate_mesh_fused(
-            tiles, block_array, u, cfg, plan, 65535.0,
-            albedo_blocks=ap, albedo_channels=4, albedo_bits=8,
-        )
-        mesh = meshgen.fused_to_grid(raw, tiles, cfg, u)
-        rgba = meshgen.fused_albedo_to_grid(raw, cfg, 4, 255.0)
-        colors = shade(
-            mesh, tiles, u, cfg, material=material, lighting=True,
-            attachment_samples={1: rgba},
-        )
-        return tiles.tile_count, colors
-
-    # combined block store: heights rows 0:32, packed albedo rows 32:64 —
-    # ONE 32 KB DMA per tile serves the whole material frame
-    combined_blocks = jax.device_put(
-        jnp.concatenate(
-            [jnp.asarray(np.asarray(blocks)),
-             jnp.asarray(packed_np.view(np.int32))], axis=1),
-        fmt,
-    )
-
-    shade_spec = kernel_shade_spec(material, 255.0)
-
-    def merged_combined_shaded(cb, u):
-        tiles = refinement.refine_tiles(u, cfg)
-        raw, tiles = meshgen.generate_mesh_fused(
-            tiles, cb, u, cfg, plan, 65535.0,
-            albedo_channels=4, albedo_bits=8, albedo_combined=True,
-            shade_spec=shade_spec,
-        )
-        return tiles.tile_count, raw
-
-    def merged_combined_opaque(cb, u):
-        # opaque material: alpha never read -> 3-channel unpack/resample
-        tiles = refinement.refine_tiles(u, cfg)
-        raw, tiles = meshgen.generate_mesh_fused(
-            tiles, cb, u, cfg, plan, 65535.0,
-            albedo_channels=3, albedo_bits=8, albedo_combined=True,
-            shade_spec=shade_spec,
-        )
-        return tiles.tile_count, raw
-
-    def merged_shaded(block_array, ap, u):
-        # the ENTIRE material frame in one kernel: mesh + packed RGBA +
-        # in-kernel PBR (raw layout out; grid views extract lazily)
-        tiles = refinement.refine_tiles(u, cfg)
-        raw, tiles = meshgen.generate_mesh_fused(
-            tiles, block_array, u, cfg, plan, 65535.0,
-            albedo_blocks=ap, albedo_channels=4, albedo_bits=8,
-            shade_spec=shade_spec,
-        )
-        return tiles.tile_count, raw
-
-    jmesh = jax.jit(mesh_only, in_shardings=(fmt, None))
-    jgrid = jax.jit(mesh_grid, in_shardings=(fmt, None))
-    jrgba = jax.jit(mesh_rgba, in_shardings=(fmt, (fmt,) * 4, None))
-    jpack = jax.jit(mesh_rgba_packed, in_shardings=(fmt, fmt, None))
-    jgrad = jax.jit(mesh_rgba_grad, in_shardings=(fmt, (fmt,) * 4, None))
-    jfull = jax.jit(full, in_shardings=(fmt, fmt, None))
-    jmerged = jax.jit(merged, in_shardings=(fmt, fmt, None))
-    jmfull = jax.jit(merged_full, in_shardings=(fmt, fmt, None))
-    jmshade = jax.jit(merged_shaded, in_shardings=(fmt, fmt, None))
-    jmcomb = jax.jit(merged_combined_shaded, in_shardings=(fmt, None))
-    jmopaq = jax.jit(merged_combined_opaque, in_shardings=(fmt, None))
-    (c0, _), (c1, colors) = (
-        jax.block_until_ready(jmesh(blocks, u1)),
-        jax.block_until_ready(jfull(blocks, albedo_packed, u1)),
-    )
-    jax.block_until_ready(jgrid(blocks, u1))
-    jax.block_until_ready(jrgba(blocks, albedo_blocks, u1))
-    jax.block_until_ready(jgrad(blocks, albedo_blocks, u1))
-    # packed parity vs planar at the same uvs (production stores packed)
-    rp = jax.block_until_ready(jpack(blocks, albedo_packed, u1))[1]
-    rq = jax.block_until_ready(jrgba(blocks, albedo_blocks, u1))[1]
-    perr = float(jnp.max(jnp.abs(rp - rq)))
-    # merged-kernel parity: its fused colors vs the standalone packed
-    # sampler at the same morphed uvs, live tiles only
-    cm, rm, _ = jax.block_until_ready(jmerged(blocks, albedo_packed, u1))
-    nlive = int(cm)
-    merr = float(jnp.max(jnp.abs(rm[:nlive] - rp[:nlive])))
-    _, cfull = jax.block_until_ready(jmfull(blocks, albedo_packed, u1))
-    # in-kernel shade parity vs the staged shade, live tiles only
-    cs, raw_s = jax.block_until_ready(jmshade(blocks, albedo_packed, u1))
-    cc, raw_cb = jax.block_until_ready(jmcomb(combined_blocks, u1))
-    cerr = float(jnp.max(jnp.abs(raw_cb - raw_s)))
-    co, raw_op = jax.block_until_ready(jmopaq(combined_blocks, u1))
-    # opaque parity: RGB rows match the 4-channel run's RGB rows
-    G1 = cfg.grid_size + 1
-    base_rows = raw_op.shape[1] - 3 * G1
-    oerr = float(jnp.max(jnp.abs(
-        raw_op[:, base_rows:] - raw_s[:, base_rows:base_rows + 3 * G1])))
-    assert int(co) == int(cs)
-    from bevy_terrain_tpu.ops.meshgen import fused_albedo_to_grid
-
-    shaded_grid = fused_albedo_to_grid(raw_s, cfg, 4, 1.0)
-    serr = float(jnp.max(jnp.abs(
-        shaded_grid[:nlive] - cfull[:nlive]
-    )))
-    assert int(c0) == int(c1) == nlive == int(cs) == int(cc)
-    t_mesh = device_time_ms(jmesh, blocks, u1, label="mat_mesh")
-    t_grid = device_time_ms(jgrid, blocks, u1, label="mat_grid")
-    t_rgba = device_time_ms(jrgba, blocks, albedo_blocks, u1, label="mat_rgba")
-    t_pack = device_time_ms(jpack, blocks, albedo_packed, u1, label="mat_pack")
-    t_grad = device_time_ms(jgrad, blocks, albedo_blocks, u1, label="mat_grad")
-    t_full = device_time_ms(jfull, blocks, albedo_packed, u1, label="mat_full")
-    t_merged = device_time_ms(jmerged, blocks, albedo_packed, u1,
-                              label="mat_merged")
-    t_mfull = device_time_ms(jmfull, blocks, albedo_packed, u1,
-                             label="mat_merged_full")
-    t_mshade = device_time_ms(jmshade, blocks, albedo_packed, u1,
-                              label="mat_merged_shaded")
-    t_mcomb = device_time_ms(jmcomb, combined_blocks, u1,
-                             label="mat_merged_combined")
-    t_mopaq = device_time_ms(jmopaq, combined_blocks, u1,
-                             label="mat_merged_opaque")
+    tiles, _ = jax.block_until_ready(mesh_only(blocks, u))
+    t_mesh = device_time_ms(mesh_only, blocks, u)
+    t_rgba = device_time_ms(with_albedo, blocks, packed, u)
+    t_grad = device_time_ms(with_grad, blocks, packed, u)
+    t_full = device_time_ms(full, blocks, packed, u)
     print(
-        f"mesh-only frame:        {t_mesh * 1e3:7.1f} us ({int(c0)} tiles)\n"
-        f"+ fused_to_grid:        {t_grid * 1e3:7.1f} us "
-        f"(+{(t_grid - t_mesh) * 1e3:.1f})\n"
-        f"  [RGBA x4 planar:      {t_rgba * 1e3:7.1f} us "
-        f"(+{(t_rgba - t_grid) * 1e3:.1f}; legacy 4-pass layout)]\n"
-        f"+ RGBA packed fetch:    {t_pack * 1e3:7.1f} us "
-        f"(+{(t_pack - t_grid) * 1e3:.1f}; one DMA serves 4 channels, "
-        f"parity {perr:.2e})\n"
-        f"  [RGBA x4 grad-4-tap:  {t_grad * 1e3:7.1f} us "
-        f"(+{(t_grad - t_grid) * 1e3:.1f} vs mesh; SAMPLE_GRAD option)]\n"
-        f"+ PBR shade = full:     {t_full * 1e3:7.1f} us "
-        f"(+{(t_full - t_pack) * 1e3:.1f})\n"
-        f"MERGED mesh+RGBA:       {t_merged * 1e3:7.1f} us "
-        f"(one kernel; parity vs packed {merr:.2e})\n"
-        f"MERGED + PBR = full:    {t_mfull * 1e3:7.1f} us\n"
-        f"ONE-KERNEL material:    {t_mshade * 1e3:7.1f} us "
-        f"(in-kernel PBR; parity vs staged shade {serr:.2e}) "
-        f"(target <= 1500 us at capacity {cfg.tile_capacity})\n"
-        f"ONE-KERNEL + 1-DMA:     {t_mcomb * 1e3:7.1f} us "
-        f"(combined height+albedo blocks, one 32 KB DMA/tile; "
-        f"parity vs two-stream {cerr:.2e})\n"
-        f"ONE-KERNEL opaque:      {t_mopaq * 1e3:7.1f} us "
-        f"(opaque_base_color: 3-channel unpack, alpha pinned 1; "
-        f"RGB parity {oerr:.2e})"
+        f"{card_info()}\n"
+        f"mesh frame:           {t_mesh * 1e3:8.1f} us ({int(tiles.tile_count)} tiles)\n"
+        f"+ packed RGBA sample: {t_rgba * 1e3:8.1f} us (+{(t_rgba - t_mesh) * 1e3:.1f})\n"
+        f"  [4-tap grad RGBA:   {t_grad * 1e3:8.1f} us (+{(t_grad - t_mesh) * 1e3:.1f})]\n"
+        f"+ PBR shade = full:   {t_full * 1e3:8.1f} us (+{(t_full - t_rgba) * 1e3:.1f})"
     )
 
 

@@ -6,7 +6,7 @@ spherical scene) and two structural ablations:
   sort_only   the dense stable 5-column sort on precomputed columns
   pred_only   the flat predicate batch alone (visible & should_divide)
 
-Usage: python tools/refine_bench.py [--cpu]
+Usage: python tools/refine_bench.py
 """
 
 from __future__ import annotations
@@ -17,32 +17,29 @@ from pathlib import Path
 import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 
 def main() -> None:
     import jax
 
-    if "--cpu" in sys.argv:
-        jax.config.update("jax_platforms", "cpu")
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        str(Path(__file__).resolve().parent.parent / ".jax_cache"),
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from bevy_terrain_tpu.utils.device import card_info, require_gpu
+
+    require_gpu()
     import jax.numpy as jnp
 
-    from multi_view_bench import build_scene
-
+    import bench
     from bevy_terrain_tpu.ops import coords, refinement
+    from bevy_terrain_tpu.utils.compile_cache import enable_compile_cache
     from bevy_terrain_tpu.utils.timing import device_time_ms
 
-    cfg, plan, blocks, u1, _ = build_scene()
+    enable_compile_cache()
+    _, (_, u1), cfg = bench.build_frame(atlas_slots=1)
+    print(card_info())
 
     jref = jax.jit(refinement.refine_tiles, static_argnames="cfg")
     t = jax.block_until_ready(jref(u1, cfg))
     n = int(t.tile_count)
-    ms = device_time_ms(jref, u1, cfg, label="refine_planar")
+    ms = device_time_ms(jref, u1, cfg)
     print(f"planar refine_tiles   {ms * 1e3:8.1f} us (tiles {n})", flush=True)
 
     # flat predicate batch alone
@@ -69,7 +66,7 @@ def main() -> None:
 
     jpred = jax.jit(pred_only)
     jax.block_until_ready(jpred(u1))
-    ms = device_time_ms(jpred, u1, label="refine_pred")
+    ms = device_time_ms(jpred, u1)
     print(f"planar pred batch     {ms * 1e3:8.1f} us "
           f"({flat_side.shape[0]} lanes)", flush=True)
 
@@ -85,7 +82,7 @@ def main() -> None:
 
     jsort = jax.jit(sort_only)
     jax.block_until_ready(jsort(cat0))
-    ms = device_time_ms(jsort, cat0, label="refine_sort")
+    ms = device_time_ms(jsort, cat0)
     print(f"planar dense sort x5  {ms * 1e3:8.1f} us", flush=True)
 
     # single-column packed-key sort for comparison
@@ -97,7 +94,7 @@ def main() -> None:
 
     jsp = jax.jit(sort_packed)
     jax.block_until_ready(jsp(cat0))
-    ms = device_time_ms(jsp, cat0, label="refine_sort_packed")
+    ms = device_time_ms(jsp, cat0)
     print(f"planar dense sort x1  {ms * 1e3:8.1f} us (packed key)", flush=True)
 
     # (Earth spherical refine timing lives in tools/earth_frame_bench.py
