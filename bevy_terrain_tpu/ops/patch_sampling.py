@@ -524,9 +524,10 @@ def sample_attachment_vertices(
             for c in range(packed_channels)
         ]
         return jnp.stack(channels, axis=-1)
-    for block_array in block_arrays:
-        channels.append(xla_channel(
-            fetch_patches_xla(block_array, batch.ids[:F, None])))
+    channels = [
+        xla_channel(fetch_patches_xla(block_array, batch.ids[:F, None]))
+        for block_array in block_arrays
+    ]
     return jnp.stack(channels, axis=-1)
 
 

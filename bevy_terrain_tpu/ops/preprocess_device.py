@@ -8,6 +8,9 @@ a lod level's tiles are ONE (N, ts, ts, C) stack and each pass is a jitted
 tensor op over the stack — no per-texel threads, no write-section/readback
 machinery:
 
+* **split resample**: the lod mosaic as two tent-weight matmuls per row
+  band (split.wgsl:18-48 bilinear; ops/preprocess.split_mosaic is the
+  host twin).
 * **downsample**: gather each parent's 4 children by index (tile-granular
   ``take``), assemble the (2*center)^2 field, nodata-masked 2x2 mean
   (downsample.wgsl:12-45).
@@ -36,6 +39,32 @@ import numpy as np
 
 from bevy_terrain_tpu.math.coordinate import TileCoordinate
 from bevy_terrain_tpu.ops.preprocess import _project_texels
+
+
+# ---------------------------------------------------------------------------
+# split resample
+# ---------------------------------------------------------------------------
+
+
+@jax.jit
+def resize_rows(m, src):
+    """(K, H) tent rows x (H, W, C) source -> (K, W, C)."""
+    # HIGHEST: the resample feeds 16-bit stored heights; a default-precision
+    # f32 dot may run in TF32 on the GPU (11 significant bits) and would
+    # quantize the dataset itself
+    return jnp.einsum(
+        "kh,hwc->kwc", m, src, preferred_element_type=jnp.float32,
+        precision=jax.lax.Precision.HIGHEST,
+    )
+
+
+@jax.jit
+def resize_cols(tmp, m):
+    """(K, W, C) band x (L, W) tent rows -> (K, L, C)."""
+    return jnp.einsum(
+        "kwc,lw->klc", tmp, m, preferred_element_type=jnp.float32,
+        precision=jax.lax.Precision.HIGHEST,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -249,16 +278,14 @@ def stitch_stack(stack, tile_sides, nbr_idx, nbr_side, border_size: int,
 
 
 # ---------------------------------------------------------------------------
-# border-delta readback
+# border-strip readback
 # ---------------------------------------------------------------------------
 # Stitch only writes the border regions (stitch.wgsl:58-67) — border 2 of a
-# 512 tile is ~1.5% of the texels. When the host already knows the
-# interiors (it ran the bit-identical split/downsample itself), the D2H
-# readback only needs these strips: extract_borders packs them into one
-# compact (N, K) tensor on device, composite_borders splices them back
-# into the host tiles. This cuts the device path's readback bytes ~60x,
-# which is what makes device-assisted preprocessing viable on hosts with
-# slow or asymmetric D2H links.
+# 512 tile is ~1.5% of the texels. The host already knows the interiors
+# (it ran split/downsample itself), so the readback only needs these
+# strips: extract_borders packs them into one compact (N, K) tensor on
+# device, composite_borders splices them back into the host tiles — ~60x
+# fewer bytes than pulling whole stitched stacks.
 
 
 def border_strip_length(texture_size: int, border_size: int,

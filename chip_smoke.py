@@ -159,8 +159,7 @@ def peak_memory_gb(device) -> float:
 # -- phase: planar ----------------------------------------------------------
 
 
-def planar_dataset(root: Path, s: dict, seed: int, device=None,
-                   readback=None):
+def planar_dataset(root: Path, s: dict, seed: int, device=None):
     """Synthesize the planar source from ``seed`` and preprocess it.
     Returns (TerrainConfig, Preprocessor that ran)."""
     from bevy_terrain_tpu.config import AttachmentConfig, TerrainConfig
@@ -182,12 +181,12 @@ def planar_dataset(root: Path, s: dict, seed: int, device=None,
     config = TerrainConfig(
         lod_count=s["lod_count"], model=bench.planar_model(),
         atlas_size=s["atlas"], path="planar",
-        assets_root=str(root / f"assets_{device}_{readback}"),
+        assets_root=str(root / f"assets_{device}"),
         attachments=(AttachmentConfig(
             name="height", texture_size=bench.TEXTURE_SIZE,
             border_size=bench.BORDER, mip_level_count=bench.MIPS),),
     )
-    pp = Preprocessor(TileAtlas(config), device=device, readback=readback)
+    pp = Preprocessor(TileAtlas(config), device=device)
     pp.clear_attachment(0).preprocess_tile(PreprocessDataset(
         attachment_index=0, path=str(src), lod_range=range(0, s["lod_count"]),
     )).run(verbose=False)
@@ -203,13 +202,9 @@ def tile_files(config) -> dict:
 
 
 def phase_preprocess(root: Path, s: dict, seed: int, expect_device: bool):
-    """Preprocessor(device=None) must choose the device path on the card.
-    Its output is held to tests/test_preprocess_device.py's contracts
-    against the host path (device=False): with full readback (the choice
-    on a fast link) the split/downsample run on the device's FPU and may
-    differ by one 16-bit unit on under 2% of texels; with border-delta
-    readback the files are byte-identical. The file sets and config.tc
-    match exactly either way."""
+    """Preprocessor(device=None) must choose the device path on the card,
+    and write the very files of the host path (device=False):
+    tests/test_preprocess_device.py's byte-identity contract."""
     t0 = time.perf_counter()
     config, pp = planar_dataset(root, s, seed, device=None)
     t_auto = time.perf_counter() - t0
@@ -220,32 +215,13 @@ def phase_preprocess(root: Path, s: dict, seed: int, expect_device: bool):
     t_host = time.perf_counter() - t0
     a, b = tile_files(config), tile_files(host_config)
     check(set(a) == set(b), "device and host paths wrote different file sets")
-    texels = differing = worst = 0
-    for k in a:
-        if k.suffix != ".bin":
-            check(a[k] == b[k], f"{k} differs")
-            continue
-        d = np.abs(np.frombuffer(a[k], np.uint16).astype(np.int64)
-                   - np.frombuffer(b[k], np.uint16).astype(np.int64))
-        texels += d.size
-        differing += int((d != 0).sum())
-        worst = max(worst, int(d.max()))
+    diff = [k for k in a if a[k] != b[k]]
     log(f"preprocess: Preprocessor(device=None) chose the "
-        f"{'device' if pp.device else 'host'} path ({pp.readback} readback); "
-        f"{len(a)} files vs device=False: max diff {worst} unit(s) "
-        f"(tolerance 1), {differing / texels:.4%} of texels differ "
-        f"(tolerance 2%); {t_auto:.1f}s auto incl. source synthesis and "
-        f"compile, {t_host:.1f}s host")
-    check(worst <= 1 and differing / texels < 0.02,
-          "device preprocess off the host path")
-    if expect_device:
-        delta_config, _ = planar_dataset(root, s, seed, device=True,
-                                         readback="delta")
-        c = tile_files(delta_config)
-        diff = [k for k in c if c[k] != b.get(k)]
-        log(f"preprocess, delta readback: {len(c)} files, "
-            f"{len(diff)} differ from device=False (tolerance 0)")
-        check(set(c) == set(b) and not diff, "delta readback not byte-exact")
+        f"{'device' if pp.device else 'host'} path; {len(a)} files, "
+        f"{len(diff)} differ from device=False (tolerance 0); "
+        f"{t_auto:.1f}s auto incl. source synthesis and compile, "
+        f"{t_host:.1f}s host")
+    check(not diff, "device preprocess is not byte-identical to the host path")
     return config
 
 
@@ -277,13 +253,14 @@ def phase_planar(root: Path, s: dict, seed: int, ref_device, expect_device=True,
     ready(update())
     first_s = time.perf_counter() - t0
     out, n_stream = stream(update, terrain.atlas)
+    dev_ms = device_time_ms(update) if jax.default_backend() == "gpu" else None
+    # the last timed frame is the one checked below
     out, ts = frame_times(update, ready, s["frames"])
     check(out.overflow == 0, f"overflow {out.overflow}")
-    dev_ms = device_time_ms(update) if jax.default_backend() == "gpu" else None
 
     # reference 1: the same jitted step, same inputs, on the CPU device
     dev = jax.devices()[0]
-    got = keyed_rows(*replay_step(terrain, "cam", dev), view)
+    got = keyed_rows(out.tiles, out.mesh, view)
     ref = keyed_rows(*replay_step(terrain, "cam", ref_device), view)
     check(set(got) == set(ref),
           f"tile sets differ from the CPU step: {len(set(got) ^ set(ref))}")
@@ -319,15 +296,9 @@ def phase_planar(root: Path, s: dict, seed: int, ref_device, expect_device=True,
          np.asarray(e_tiles.tile_xy[:n, 0]), np.asarray(e_tiles.tile_xy[:n, 1])],
         axis=-1)]
     check(set(e_keys) == set(got), "per-vertex path refined another tile set")
-    g_tiles, g_mesh = replay_step(terrain, "cam", dev)
-    g_n = int(g_tiles.tile_count)
-    g_keys = [tuple(int(v) for v in k) for k in np.stack(
-        [np.asarray(g_tiles.tile_side[:g_n]), np.asarray(g_tiles.tile_lod[:g_n]),
-         np.asarray(g_tiles.tile_xy[:g_n, 0]), np.asarray(g_tiles.tile_xy[:g_n, 1])],
-        axis=-1)]
     order = {k: i for i, k in enumerate(e_keys)}
-    idx = np.array([order[k] for k in g_keys])
-    strip = meshgen.grid_to_strip_order(g_mesh.heights, cfg)[:g_n]
+    idx = np.array([order[k] for k in got])  # got keeps out's row order
+    strip = meshgen.grid_to_strip_order(out.mesh.heights, cfg)[:len(got)]
     err = np.abs(strip - np.asarray(e_mesh.heights)[idx])
     med, p99 = float(np.median(err)), float(np.percentile(err, 99))
     log(f"planar vs per-vertex generate_mesh: median |dh| {med:.4f} m "
@@ -403,11 +374,12 @@ def phase_earth(root: Path, s: dict, seed: int, ref_device):
         return terrain.update({"cam": view}, {"cam": vp})["cam"]
 
     out, n_stream = stream(update, terrain.atlas)
+    dev_ms = device_time_ms(update) if jax.default_backend() == "gpu" else None
+    # the last timed frame is the one checked below
     out, ts = frame_times(update, lambda o: jax.block_until_ready(o.mesh),
                           s["frames"])
     check(out.overflow == 0, f"overflow {out.overflow}")
-    dev_ms = device_time_ms(update) if jax.default_backend() == "gpu" else None
-    got = keyed_rows(*replay_step(terrain, "cam", jax.devices()[0]), view)
+    got = keyed_rows(out.tiles, out.mesh, view)
     ref = keyed_rows(*replay_step(terrain, "cam", ref_device), view)
     n_diff = len(set(got) ^ set(ref))
     check(n_diff <= FRUSTUM_TIE_BOUND,
@@ -432,70 +404,6 @@ def phase_earth(root: Path, s: dict, seed: int, ref_device):
 
 
 # -- phase: raster ----------------------------------------------------------
-
-
-def oracle_crop(positions, tile_mask, vp, width, height, x0, y0, size,
-                near_eps=1e-4):
-    """Numpy scanline rasterizer (f64) over the pixel crop
-    [y0, y0+size) x [x0, x0+size), with the rasterizer's contract: pixel
-    centers at +0.5, sign-normalized edge functions, top-left fill rule,
-    reverse-Z depth max, triangles touching w <= near_eps culled.
-
-    Returns (tri_id, depth, decisive) over the crop; tri_id indexes
-    ``_triangle_vertex_indices(F, G1)`` like the device's. A pixel is
-    decisive when the winner's nearest edge is more than 0.02 px away
-    (sub-pixel vertex snapping and f32 edge evaluation cannot flip it)
-    and, where triangles overlap, its depth leads the runner-up by more
-    than 1e-4 relative."""
-    from bevy_terrain_tpu.render.raster import _triangle_vertex_indices
-
-    F, G1 = positions.shape[0], positions.shape[1]
-    p = positions.reshape(-1, 3).astype(np.float64)
-    m = np.asarray(vp, np.float64)
-    clip = p @ m[:, :3].T + m[:, 3]
-    w = clip[:, 3]
-    sx = (clip[:, 0] / w * 0.5 + 0.5) * width
-    sy = (0.5 - clip[:, 1] / w * 0.5) * height
-    sz = clip[:, 2] / w
-    all_tri = _triangle_vertex_indices(F, G1)
-    live = np.asarray(tile_mask)[all_tri[:, 0] // (G1 * G1)]
-    kept = np.nonzero(live & (w[all_tri] > near_eps).all(axis=1))[0]
-    tx, ty = sx[all_tri[kept]], sy[all_tri[kept]]
-    hit = ((tx.max(1) >= x0) & (tx.min(1) <= x0 + size)
-           & (ty.max(1) >= y0) & (ty.min(1) <= y0 + size))
-    tri_img = np.full((size, size), -1, np.int64)
-    depth = np.full((size, size), -np.inf)
-    depth2 = np.full((size, size), -np.inf)
-    margin = np.full((size, size), np.inf)
-    cy, cx = np.mgrid[y0:y0 + size, x0:x0 + size] + 0.5
-    for t in np.nonzero(hit)[0]:
-        x, y, z = tx[t], ty[t], sz[all_tri[kept[t]]]
-        area = (x[1] - x[0]) * (y[2] - y[0]) - (y[1] - y[0]) * (x[2] - x[0])
-        if area == 0:
-            continue
-        s = -1.0 if area < 0 else 1.0
-        inside = np.ones(cx.shape, bool)
-        es, dist = [], np.full(cx.shape, np.inf)
-        for i in range(3):
-            j, k = (i + 1) % 3, (i + 2) % 3
-            a = -(y[k] - y[j]) * s
-            b = (x[k] - x[j]) * s
-            e = ((x[k] - x[j]) * (cy - y[j]) - (y[k] - y[j]) * (cx - x[j])) * s
-            tl = (b < 0) or (b == 0 and a > 0)
-            inside &= (e > 0) | ((e == 0) & tl)
-            es.append(e)
-            dist = np.minimum(dist, np.abs(e) / max(np.hypot(a, b), 1e-30))
-        zval = (es[0] * z[0] + es[1] * z[1] + es[2] * z[2]) / abs(area)
-        win = inside & (zval > depth)
-        depth2 = np.where(win, depth,
-                          np.where(inside, np.maximum(depth2, zval), depth2))
-        depth = np.where(win, zval, depth)
-        tri_img = np.where(win, kept[t], tri_img)
-        margin = np.where(win, dist, margin)
-    covered = tri_img >= 0
-    lead = (depth - depth2) / np.maximum(np.abs(depth), 1e-30)
-    decisive = ~covered | ((margin > 0.02) & (lead > 1e-4))
-    return tri_img, depth, decisive
 
 
 def shared_edges_once():
@@ -550,6 +458,7 @@ def phase_raster(terrain, out, view, s: dict):
 
     from bevy_terrain_tpu.math.frustum import view_projection
     from bevy_terrain_tpu.render.raster import render_view
+    from bevy_terrain_tpu.render.raster_reference import reference_raster
 
     W, H, c = s["raster_w"], s["raster_h"], s["raster_crop"]
     vp = view_projection(view, view + np.array([700.0, -700.0, 210.0]),
@@ -572,10 +481,15 @@ def phase_raster(terrain, out, view, s: dict):
     check(np.isfinite(np.asarray(img)).all(), "non-finite pixels")
     # the crop: bottom centre, where the terrain is near and dense
     x0, y0 = W // 2 - c // 2, int(H * 0.75) - c // 2
-    o_tri, o_depth, decisive = oracle_crop(
+    o = reference_raster(
         np.asarray(out.mesh.positions), np.asarray(out.mesh.tile_mask), vp,
-        W, H, x0, y0, c,
+        W, H, x0, y0, c, c,
     )
+    o_tri, o_depth = o.tri_id, o.depth
+    # decisive: the winner's nearest edge is more than 0.02 px away (sub-
+    # pixel vertex snapping and f32 edge evaluation cannot flip it) and,
+    # where triangles overlap, its depth leads the runner-up by 1e-4
+    decisive = (o_tri < 0) | ((o.edge_px > 0.02) & (o.lead > 1e-4))
     g_tri = np.asarray(r.tri_id)[y0:y0 + c, x0:x0 + c]
     g_depth = np.asarray(r.depth)[y0:y0 + c, x0:x0 + c]
     frac = float(decisive.mean())
@@ -681,15 +595,11 @@ def main(argv=None) -> int:
 
     import jax
 
-    if jax.default_backend() != "gpu":
-        print(f"chip_smoke: JAX found no GPU (backend "
-              f"{jax.default_backend()!r}); nothing to prove here",
-              file=sys.stderr)
-        return 2
+    from bevy_terrain_tpu.utils.device import card_info, device_summary, require_gpu
 
+    require_gpu()
     from bevy_terrain_tpu import native
     from bevy_terrain_tpu.utils.compile_cache import enable_compile_cache
-    from bevy_terrain_tpu.utils.device import card_info, device_summary
 
     cache = enable_compile_cache()
     dev = device_summary()

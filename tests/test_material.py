@@ -437,6 +437,31 @@ class TestAttachmentSampling:
         assert np.isfinite(c3).all() and (c3[..., :3] <= c[..., :3] + 0.2).all()
 
 
+    @pytest.mark.parametrize("grad_taps", [1, 4])
+    def test_single_channel_grid_matches_query(self, shaded_terrain,
+                                               grad_taps):
+        """A one-channel attachment (the R16 height) is stored unpacked:
+        the grid sampler must take it like a packed RGBA one and agree
+        with the per-vertex query chain at the frame's vertices."""
+        t, view, _ = shaded_terrain
+        out = t.update({"cam": view})["cam"]
+        got = np.asarray(
+            t.sample_attachment_grid("cam", out, 0, grad_taps=grad_taps))
+        mask = np.asarray(out.mesh.tile_mask)
+        assert got.shape == out.mesh.heights.shape + (1,)
+        pos = np.asarray(out.mesh.positions)[mask].reshape(-1, 3)
+        want = np.asarray(t.query_attachment("cam", pos, 0))[:, 0]
+        err = np.abs(got[mask].reshape(-1) - want)
+        # both read the linear ramp: exact up to 16-bit quantization,
+        # the f32 position round trip and the mip the grid picks
+        assert np.median(err) < 1e-3 and err.max() < 5e-3, (
+            float(np.median(err)), float(err.max()))
+        u = pos[:, 0] / 1000.0 + 0.5
+        np.testing.assert_allclose(
+            np.median(np.abs(got[mask].reshape(-1) - ramp_field(u, 0.0))),
+            0.0, atol=1e-3)
+
+
 class TestTileTreeView:
     def test_show_tile_tree(self, shaded_terrain):
         t, view, _ = shaded_terrain

@@ -1,10 +1,10 @@
 """Rasterizer tests (render/raster.py).
 
-Oracle strategy: a scalar numpy scanline rasterizer implementing the
-IDENTICAL contract (pixel centers at +0.5, sign-normalized edge
-functions, the same fill rule, reverse-Z depth max, perspective-correct
-barycentrics) — the device path must agree per pixel away from edge
-ties. This mirrors the reference's own visual oracle role for its
+Oracle strategy: the numpy scanline rasterizer of
+render/raster_reference.py implements the IDENTICAL contract (pixel
+centers at +0.5, sign-normalized edge functions, the same fill rule,
+reverse-Z depth max, perspective-correct barycentrics) — the device path
+must agree per pixel away from edge ties. This mirrors the reference's own visual oracle role for its
 raster output (fragment.wgsl / debug.wgsl views)."""
 
 import numpy as np
@@ -16,72 +16,11 @@ import jax.numpy as jnp
 from bevy_terrain_tpu.math.frustum import view_projection
 from bevy_terrain_tpu.render.raster import (
     RasterOutput,
-    _triangle_vertex_indices,
     interpolate,
     rasterize_grid,
     render_view,
 )
-
-
-def _project_np(positions, vp, width, height):
-    p = positions.reshape(-1, 3).astype(np.float64)
-    clip = p @ np.asarray(vp)[:, :3].T + np.asarray(vp)[:, 3]
-    w = clip[:, 3]
-    ndc = clip[:, :3] / w[:, None]
-    sx = (ndc[:, 0] * 0.5 + 0.5) * width
-    sy = (0.5 - ndc[:, 1] * 0.5) * height
-    return sx, sy, ndc[:, 2], w
-
-
-def oracle_raster(positions, tile_mask, vp, width, height, near_eps=1e-4):
-    """Scalar reference rasterizer; returns (tri_id, depth, edge_margin)."""
-    F, G1 = positions.shape[0], positions.shape[1]
-    tri_vidx = _triangle_vertex_indices(F, G1)
-    sx, sy, sz, w = _project_np(positions, vp, width, height)
-    tri_img = np.full((height, width), -1, np.int64)
-    depth = np.full((height, width), -np.inf)
-    margin = np.full((height, width), np.inf)  # min |edge| of the winner
-
-    for t, vid in enumerate(tri_vidx):
-        f = vid[0] // (G1 * G1)
-        if not tile_mask[f]:
-            continue
-        if np.any(w[vid] <= near_eps):
-            continue
-        x, y, z = sx[vid], sy[vid], sz[vid]
-        area = (x[1] - x[0]) * (y[2] - y[0]) - (y[1] - y[0]) * (x[2] - x[0])
-        if area == 0:
-            continue
-        s = -1.0 if area < 0 else 1.0
-        x0, x1 = int(np.floor(x.min())), int(np.ceil(x.max()))
-        y0, y1 = int(np.floor(y.min())), int(np.ceil(y.max()))
-        for py in range(max(y0, 0), min(y1 + 1, height)):
-            for px in range(max(x0, 0), min(x1 + 1, width)):
-                cx, cy = px + 0.5, py + 0.5
-                es = []
-                ok = True
-                for i in range(3):
-                    j, k = (i + 1) % 3, (i + 2) % 3
-                    a = -(y[k] - y[j]) * s
-                    b = (x[k] - x[j]) * s
-                    e = (
-                        (x[k] - x[j]) * (cy - y[j])
-                        - (y[k] - y[j]) * (cx - x[j])
-                    ) * s
-                    tl = (b < 0) or (b == 0 and a > 0)
-                    if not (e > 0 or (e == 0 and tl)):
-                        ok = False
-                        break
-                    es.append(e)
-                if not ok:
-                    continue
-                bary = np.array(es) / abs(area)
-                zval = float(bary @ z[[0, 1, 2]])
-                if zval > depth[py, px]:
-                    depth[py, px] = zval
-                    tri_img[py, px] = t
-                    margin[py, px] = min(es) / abs(area)
-    return tri_img, depth, margin
+from bevy_terrain_tpu.render.raster_reference import reference_raster
 
 
 def _flat_tile(G1=3, size=10.0, y=0.0):
@@ -586,7 +525,7 @@ class TestOracleParity:
             jnp.asarray(pos), jnp.asarray(mask), jnp.asarray(vp, jnp.float32),
             W, H, bin_px=16, bin_cap=128,
         )
-        o_tri, o_depth, o_margin = oracle_raster(pos, mask, vp, W, H)
+        o_tri, o_depth, o_margin, _, _ = reference_raster(pos, mask, vp, W, H)
         got_tri = np.asarray(out.tri_id)
         got_depth = np.asarray(out.depth)
         # compare where the oracle's winner is decisively inside (f32
